@@ -6,23 +6,31 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and nvcc.
 Phases, each of which passes or raises (a failure exits nonzero):
 
 1. device: name, count, versions, nvidia-smi name and power limit;
-2. build: nvcc on the port's CUDA sources, with each kernel
-   instantiation's registers, spills and shared memory;
+2. build: nvcc on the port's CUDA sources, one process per translation
+   unit, all at once, and the build's seconds; each kernel instantiation's
+   registers, spills and shared memory, by working type, integrand and
+   dimension D.  Float64 instantiations at D <= 8 must not spill;
 3. kernel vs its plain PyTorch version, on the card, for every integrand
-   and family over d in {1,2,3,5,8,13} x B in {1, 257, 65536} and over
-   block sizes, float64 at the bars of tests/test_kernels.py and float32
+   and family over d in {1,2,3,5,8,13} x B in {1, 257, 65536}, every other
+   d up to 16 at B = 257 (fewer integrands above 13, where the plain
+   version is slow), block sizes, and a per-lane theta (one theta per
+   region); float64
+   at the bars of tests/test_kernels.py and within 1e-14 relative, float32
    against the float64 plain version;
 4. main path: repro_torch.core.adaptive.integrate on the card at capacity
    2^22 in float64, three cases, each of which must converge to its exact
-   value, with one kernel launch per evaluate step;
-5. timings with CUDA events at the main path's window size.
+   value in the iterations and evaluations recorded for it, with one
+   kernel launch per evaluate step;
+5. timings with CUDA events at the main path's window size: the kernel
+   wrapper on SoA inputs, the same through kernels/ops.py (with the
+   layout change the main path makes), and the plain version; beside them
+   two bounds (see _bounds).
 
 It ends with one JSON line per kernel summary and, last, the device line.
 """
 
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -33,20 +41,26 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): FP64 outside the tensor cores, HBM3.
+# the three main-path cases, the (integrand, d) timed at B = TIMED_B, and
+# the helpers that gm_perf.py's measurements share with this script
+from repro_torch.launch.gm_perf import (  # noqa: E402
+    MAIN_CASES, TIMED, TIMED_B, card, inputs, soa, time_ms,
+)
+
+# H100 SXM peaks (NVIDIA data sheet): FP64 outside the tensor cores (an FMA
+# counted as two operations), HBM3.
 PEAK_FP64_FLOPS = 34e12
 PEAK_HBM_BYTES = 3.35e12
+# FP64 lanes per SM on Hopper: each issues one add, multiply or FMA per clock
+FP64_LANES_PER_SM = 64
 
-MAIN_CASES = [
-    # (integrand, d, rel_tol, capacity)
-    ("f4", 5, 1e-7, 1 << 22),
-    # rel_tol 1e-5, one decade above 1e-6: at 1e-6 the 2^22 store fills and
-    # the run ends with status "capacity" (PERF.md, PR 11)
-    ("genz_gaussian:" + ",".join(["5"] * 8) + ":" + ",".join(["0.5"] * 8), 8, 1e-5, 1 << 22),
-    ("f6", 5, 1e-4, 1 << 22),
-]
-TIMED = [("f4", 5), ("genz_gaussian", 8)]  # (integrand, d) at B = 2^20
-TIMED_B = 1 << 20
+# (iterations, n_evals) of each MAIN_CASES run, exact: the kernel's
+# redesign keeps its results, so the adaptive run takes the same path
+EXPECTED_PATH = {"f4": (29, 392709984), "genz_gaussian": (25, 10851868416), "f6": (27, 1713618)}
+# float64 kernel vs plain version: the bar of tests/test_kernels.py, and the
+# parity the kernel keeps (it repeats the plain version's operations)
+RTOL64 = 1e-12
+PARITY64 = 1e-14
 
 
 def log(msg=""):
@@ -56,10 +70,7 @@ def log(msg=""):
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = card()
     log(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
@@ -71,54 +82,36 @@ def phase_build():
 
     t0 = time.perf_counter()
     built = build.build_all()
-    log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    pat = re.compile(r"gm_eval_kernelI([df])(\d+)")
+    seconds = time.perf_counter() - t0
+    units = sum(len(build.LIBRARIES[name]) for name in built)
+    log(f"build: {sorted(built)}, {units} translation units, in {seconds:.1f} s")
+    report = {}  # (dtype, integrand) -> {D: (registers, spill stores, spill loads, smem)}
     for lib in built.values():
-        name = None
-        for line in lib.log.splitlines():
-            if "Compiling entry function" in line:
-                m = pat.search(line)
-                if m:
-                    n = int(m.group(2))
-                    rest = line[m.end():]
-                    name = ("float64 " if m.group(1) == "d" else "float32 ") + rest[:n]
-            elif name and "spill stores" in line:
-                spills = re.findall(r"(\d+) bytes spill (stores|loads)", line)
-            elif name and "Used" in line and "registers" in line:
-                regs = re.search(r"Used (\d+) registers", line).group(1)
-                smem = re.search(r"(\d+) bytes smem", line)
-                log(f"  {name:<26} {regs} registers, "
-                    + ", ".join(f"{n} B spill {kind}" for n, kind in spills)
-                    + f", {smem.group(1) if smem else 0} B shared memory")
-                name = None
-    return built
-
-
-def _inputs(name, d, b, rng, device="cuda"):
-    from repro_torch.core import integrands
-
-    centers = torch.as_tensor(rng.uniform(0.1, 0.9, (b, d)), device=device)
-    halfw = torch.as_tensor(rng.uniform(0.01, 0.1, (b, d)), device=device)
-    if name in integrands.PARAM_REGISTRY:
-        entry = integrands.PARAM_REGISTRY[name]
-        return entry, centers, halfw, entry.sample_theta(d, rng)
-    return integrands.REGISTRY[name], centers, halfw, None
+        for (dtype, name, d), row in build.ptxas_report(lib.log).items():
+            report.setdefault((dtype, name), {})[d] = row
+    assert len(report) == 20 and all(len(v) == 16 for v in report.values()), sorted(report)
+    log("  registers / spill bytes (stores+loads) / static shared bytes, D = 1..16:")
+    for (dtype, name), by_d in sorted(report.items()):
+        row = [by_d[d] for d in range(1, 17)]
+        log(f"  {dtype} {name:<16} regs {' '.join(f'{r[0]:3d}' for r in row)}")
+        log(f"  {'':<24} spill {' '.join(f'{r[1] + r[2]:3d}' for r in row)}"
+            f"  smem {' '.join(str(r[3]) for r in row)}")
+    spilled = [(dtype, name, d) for (dtype, name), by_d in report.items()
+               for d, r in by_d.items() if dtype == "float64" and d <= 8 and r[1] + r[2]]
+    assert not spilled, f"float64 instantiations at D <= 8 spill: {spilled}"
 
 
 def _plain(entry, centers, halfw, theta):
     """The plain PyTorch version on the same CUDA tensors."""
     from repro_torch.kernels.ref import genz_malik_eval_soa_ref
 
-    ct, ht = centers.T.contiguous(), halfw.T.contiguous()
-    if theta is None:
+    ct, ht, rows = soa(entry, centers, halfw, theta)
+    if rows is None:
         return genz_malik_eval_soa_ref(entry.fn, ct, ht)
-    leaves = [torch.as_tensor(theta[k], dtype=ct.dtype, device=ct.device)
-              for k in entry.theta_fields]
-    rows = torch.cat(leaves)[:, None].expand(-1, ct.shape[1])
-    sizes = [leaf.shape[0] for leaf in leaves]
+    d = ct.shape[0]  # every family's theta fields are (d,) leaves
 
     def fn(x, r):
-        return entry.fn(x, dict(zip(entry.theta_fields, r.split(sizes))))
+        return entry.fn(x, dict(zip(entry.theta_fields, r.split(d))))
 
     return genz_malik_eval_soa_ref(fn, ct, ht, rows)
 
@@ -132,11 +125,14 @@ def _kernel(entry, centers, halfw, theta, block=0):
 
 
 def _check64(got, ref, what):
-    """The bars of tests/test_kernels.py; returns the largest relative error."""
+    """The bars of tests/test_kernels.py, and the kernel's parity with the
+    plain version (PARITY64); returns the largest relative error."""
     worst = 0.0
     for g, r, label in zip(got[:3], ref[:3], ("i7", "i5", "i3")):
-        torch.testing.assert_close(g, r, rtol=1e-12, atol=1e-300, msg=lambda m: f"{what} {label}: {m}")
-        worst = max(worst, float(((g - r).abs() / r.abs().clamp_min(1e-300)).max()))
+        torch.testing.assert_close(g, r, rtol=RTOL64, atol=1e-300, msg=lambda m: f"{what} {label}: {m}")
+        rel = float(((g - r).abs() / r.abs().clamp_min(1e-300)).max())
+        assert rel <= PARITY64, f"{what} {label}: relative error {rel:.3e} > {PARITY64}"
+        worst = max(worst, rel)
     dmax = float(ref[3].abs().max())
     torch.testing.assert_close(got[3], ref[3], rtol=1e-8, atol=dmax * 1e-10 + 1e-14,
                                msg=lambda m: f"{what} diffs: {m}")
@@ -176,6 +172,46 @@ def _check32(got, ref32, ref64, halfw, what):
     return worst, n_overflow
 
 
+def _per_lane(name, d, b, rng, dtype):
+    """A family with one theta per region: materialised (n_theta, B) rows
+    (lane stride 1), the kernel's per-lane route."""
+    from repro_torch.core import integrands
+
+    entry = integrands.PARAM_REGISTRY[name]
+    c = torch.as_tensor(rng.uniform(0.1, 0.9, (d, b)), dtype=dtype, device="cuda")
+    h = torch.as_tensor(rng.uniform(0.01, 0.1, (d, b)), dtype=dtype, device="cuda")
+    thetas = [entry.sample_theta(d, rng) for _ in range(b)]
+    rows = torch.as_tensor(
+        np.stack([np.concatenate([t[k] for k in entry.theta_fields]) for t in thetas], axis=1),
+        dtype=dtype, device="cuda")
+    return entry, c, h, rows
+
+
+def _check_per_lane(rng):
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels.ref import genz_malik_eval_soa_ref
+    from repro_torch.core import integrands
+
+    worst = 0.0
+    for d in (1, 3, 8, 12):
+        for name in sorted(integrands.PARAM_REGISTRY):
+            entry, c, h, rows = _per_lane(name, d, 257, rng, torch.float64)
+            assert rows.stride(1) == 1 and not bool((rows == rows[:, :1]).all())
+
+            def fn(x, r, entry=entry, d=d):
+                return entry.fn(x, dict(zip(entry.theta_fields, r.split(d))))
+
+            got = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c, h, rows)
+            worst = max(worst, _check64(got, genz_malik_eval_soa_ref(fn, c, h, rows),
+                                        f"{name} d={d} per-lane theta"))
+            got32 = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c.float(), h.float(), rows.float())
+            ref32 = genz_malik_eval_soa_ref(fn, c.float(), h.float(), rows.float())
+            for g, r in zip(got32[:3], ref32[:3]):
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6 * float(r.abs().max()) + 1e-38,
+                                           msg=lambda m: f"{name} d={d} per-lane float32: {m}")
+    return worst, 2 * 4 * len(integrands.PARAM_REGISTRY)
+
+
 def phase_kernel_vs_plain():
     from repro_torch.core import integrands
     from repro_torch.kernels import genz_malik_eval as gm_kernel
@@ -186,31 +222,47 @@ def phase_kernel_vs_plain():
     worst64 = worst32 = 0.0
     n_checks = overflowed = 0
     t0 = time.perf_counter()
-    for d in (1, 2, 3, 5, 8, 13):
-        for b in (1, 257, 65536):
-            for name in names:
-                entry, c, h, theta = _inputs(name, d, b, rng)
-                ref = _plain(entry, c, h, theta)
-                got = _kernel(entry, c, h, theta)
-                worst64 = max(worst64, _check64(got, ref, f"{name} d={d} B={b} float64"))
-                got32 = _kernel(entry, c.float(), h.float(), theta)
-                ref32 = _plain(entry, c.float(), h.float(), theta)
-                share, n_overflow = _check32(got32, ref32, ref, h, f"{name} d={d} B={b}")
-                worst32 = max(worst32, share)
-                overflowed += n_overflow
-                n_checks += 2
-    for block in (32, 64, 128, 512):
-        for name in names:
-            entry, c, h, theta = _inputs(name, 3, 192, rng)
+    swept = (1, 2, 3, 5, 8, 13)
+    cases = [(d, b, names) for d in swept for b in (1, 257, 65536)]
+    # every other d at B = 257; above 13 the plain version's 2^d corners
+    # take seconds per call (one launch per operation per node), so fewer
+    # integrands bound it there: a sum, the NaN flag, a product and theta
+    # at d=14, a sum with and without theta at d=15 and 16
+    deep = {14: ["f4", "f6", "genz_gaussian", "monomial"],
+            15: ["f4", "genz_gaussian"], 16: ["f4", "genz_gaussian"]}
+    cases += [(d, 257, deep.get(d, names)) for d in range(1, 17) if d not in swept]
+    for d, b, these in cases:
+        for name in these:
+            entry, c, h, theta = inputs(name, d, b, rng)
+            ref = _plain(entry, c, h, theta)
+            got = _kernel(entry, c, h, theta)
+            worst64 = max(worst64, _check64(got, ref, f"{name} d={d} B={b} float64"))
+            got32 = _kernel(entry, c.float(), h.float(), theta)
+            ref32 = _plain(entry, c.float(), h.float(), theta)
+            share, n_overflow = _check32(got32, ref32, ref, h, f"{name} d={d} B={b}")
+            worst32 = max(worst32, share)
+            overflowed += n_overflow
+            n_checks += 2
+    # block sizes: d=3 without spills, d=12 at the smallest and largest
+    # block, and d=16, where ptxas spills most, at 512 threads
+    blocks = [(block, 3, names) for block in (32, 64, 128, 512)]
+    blocks += [(block, 12, names) for block in (32, 512)]
+    for block, d, these in blocks + [(512, 16, ["f4"])]:
+        for name in these:
+            entry, c, h, theta = inputs(name, d, 192 if d < 16 else 600, rng)
             worst64 = max(worst64, _check64(_kernel(entry, c, h, theta, block),
                                             _plain(entry, c, h, theta),
-                                            f"{name} block={block}"))
+                                            f"{name} d={d} block={block}"))
             n_checks += 1
+    worst_lane, n_lane = _check_per_lane(rng)
+    worst64 = max(worst64, worst_lane)
+    n_checks += n_lane
     torch.cuda.synchronize()
     launched = gm_kernel.launch_count() - before
     assert launched == n_checks, (launched, n_checks)
-    log(f"kernel vs plain: {n_checks} checks passed in {time.perf_counter() - t0:.1f} s; "
-        f"largest relative error float64 {worst64:.3e} (bar 1e-12); "
+    log(f"kernel vs plain: {n_checks} checks passed in {time.perf_counter() - t0:.1f} s "
+        f"(d = 1..16, broadcast and per-lane theta); largest relative error float64 "
+        f"{worst64:.3e} (bars {RTOL64:g} and {PARITY64:g}); "
         f"largest float32 error {worst32:.3f} of its bar; {overflowed} float32 "
         f"estimates overflowed in both the kernel and the plain version")
 
@@ -254,57 +306,85 @@ def phase_main_path():
         assert res.status == "converged", row
         assert rel <= 5 * rel_tol, row
         assert launches == len(windows) > 0, row
+        assert (res.iterations, int(res.n_evals)) == EXPECTED_PATH[row["case"]], row
         total += launches
         rows.append(row)
     return total, rows
 
 
-def _time(fn, reps):
-    for _ in range(3):  # warm-up
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+# FP64 instructions of the two timed integrands in the kernel's table form
+# (integrands.cuh): per term x - 0.5, t * t (f4) or x - u, a * t, t * t
+# (genz_gaussian); per finish -625 * s, exp (f4) or exp(-s), whose negation
+# is an operand modifier (genz_gaussian); exp counted as one instruction.
+TERM_INSTR = {"f4": 2, "genz_gaussian": 3}
+FINISH_INSTR = {"f4": 2, "genz_gaussian": 1}
 
 
-def _ops_per_region(name, d):
-    """Least arithmetic per region, counting exp as one operation: every
-    node costs the integrand's per-point work, plus the weighted sums."""
+def _bounds(name, d, b, sms, clock_hz):
+    """Two yardsticks of the kernel's time at ``b`` regions, in ms.
+
+    ``bound_ms`` is the bound of the port's first kernel, kept so that the
+    rows of PERF.md compare: the larger of bytes / HBM rate and operations
+    / 34 TFLOP/s, with n_nodes(d) * (the plain integrand's per-point work)
+    + 4d + 20 operations per region.  Those operations recompute every
+    axis's factor at every node, which the table form does not, and the
+    rate counts an FMA as two operations while the kernel, built with
+    -fmad=false, issues adds and multiplies: it is a shared yardstick, not
+    a least time of this kernel.
+
+    ``instr_bound_ms`` is the time of the table form's FP64 instructions at
+    the FP64 issue rate (64 lanes per SM at the card's largest SM clock),
+    or of the bytes if longer: the 8d coordinates (4d products lambda * h,
+    8d adds and subtracts), 9d terms, and per node its d - 1 folds, its
+    finish and one add into its group's sum; the scale (d - 1), the fourth
+    differences (6d + 1) and the weighted sums (22).  Each exp counts as
+    one instruction (``exps`` is their number; the math library takes
+    about twenty), and no fold is shared between nodes.
+    """
     from repro_torch.core.genz_malik import n_nodes
 
+    nodes = n_nodes(d)
+    bytes_moved = (2 * d + 3 + d) * b * 8
     per_point = {"f4": 3 * d + 2, "genz_gaussian": 4 * d + 2}[name]
-    return n_nodes(d) * per_point + 4 * d + 20
+    ops = (nodes * per_point + 4 * d + 20) * b
+    instr = (12 * d + 9 * d * TERM_INSTR[name] + nodes * (d + FINISH_INSTR[name])
+             + (d - 1) + (6 * d + 1) + 22) * b
+    bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
+    ops_ms = ops / PEAK_FP64_FLOPS * 1e3
+    return dict(
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        bytes=bytes_moved, ops=ops,
+        instr_bound_ms=max(bytes_ms, instr / (sms * FP64_LANES_PER_SM * clock_hz) * 1e3),
+        fp64_instr=instr, exps=nodes * b,
+    )
 
 
 def phase_timing():
     from repro_torch.kernels import genz_malik_eval as gm_kernel
 
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(1)
     out = []
     for name, d in TIMED:
-        entry, c, h, theta = _inputs(name, d, TIMED_B, rng)
+        entry, c, h, theta = inputs(name, d, TIMED_B, rng)
+        ct, ht, rows = soa(entry, c, h, theta)
         before = gm_kernel.launch_count()
         got = _kernel(entry, c, h, theta)
         ref = _plain(entry, c, h, theta)
         _check64(got, ref, f"{name} d={d} B={TIMED_B}")
         max_abs = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        ms = _time(lambda: _kernel(entry, c, h, theta), 50)
-        plain_ms = _time(lambda: _plain(entry, c, h, theta), 20)
-        assert gm_kernel.launch_count() - before == 1 + 3 + 50
-        bytes_moved = (2 * d + 3 + d) * TIMED_B * 8
-        ops = _ops_per_region(name, d) * TIMED_B
-        bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
-        ops_ms = ops / PEAK_FP64_FLOPS * 1e3
+        ms = time_ms(lambda: gm_kernel.genz_malik_eval_soa(entry.kernel_id, ct, ht, rows), 50)
+        ops_ms = time_ms(lambda: _kernel(entry, c, h, theta), 50)
+        plain_ms = time_ms(lambda: _plain(entry, c, h, theta), 20)
+        assert gm_kernel.launch_count() - before == 1 + 2 * (3 + 50)
         row = dict(integrand=name, d=d, B=TIMED_B, dtype="float64", ms=ms,
-                   plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   bytes=bytes_moved, ops=ops, max_abs_err=max_abs,
+                   ms_via_ops=ops_ms, plain_ms=plain_ms,
+                   **_bounds(name, d, TIMED_B, sms, clock_mhz * 1e6),
+                   sms=sms, clock_max_mhz=clock_mhz, max_abs_err=max_abs,
                    library_ms=None)
         log("timing: " + json.dumps(row))
         out.append(row)
@@ -320,11 +400,11 @@ def main():
     t = timings[0]
     kernel = dict(
         name="genz_malik_eval", route="cuda",
-        source="src/repro_torch/kernels/csrc/genz_malik_eval.cu",
+        source="src/repro_torch/kernels/csrc/gm_kernel.cuh",
         replaces="src/repro/kernels/genz_malik_eval.py:44",
         launches=launches, max_abs_err=t["max_abs_err"], ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=None,
+        instr_bound_ms=t["instr_bound_ms"], library_ms=None,
         at=f"{t['integrand']} d={t['d']} B={t['B']} float64",
     )
     log(f"card: {smi}")

@@ -2,9 +2,10 @@
 
 Replaces the Pallas TPU kernel ``genz_malik_eval_soa`` of
 ``src/repro/kernels/genz_malik_eval.py``.  The wrapper checks its inputs,
-allocates the outputs, and launches on the current CUDA stream without
-synchronising.  It counts its launches (:func:`launch_count`), so that a
-run can show that the main path went through the kernel.
+chooses the threads per block (:func:`resolve_block`), allocates the
+outputs, and launches on the current CUDA stream without synchronising.  It counts its launches
+(:func:`launch_count`), so that a run can show that the main path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from repro_torch.core.genz_malik import (
 )
 from repro_torch.kernels import build
 
-MAX_D = 16  # GM_MAX_D of integrands.cuh
+MAX_D = 16  # GM_MAX_D of gm_launch.h
 MAX_BLOCK = 512  # kMaxBlock, the kernel's __launch_bounds__
 DEFAULT_BLOCK = 256
 
@@ -155,7 +156,10 @@ def genz_malik_eval_soa(
         ctypes.cast(consts, ctypes.c_void_p), stream,
     )
     if rc != 0:
-        raise RuntimeError(f"genz_malik_eval kernel launch failed: cudaError_t {rc}")
+        raise RuntimeError(
+            f"genz_malik_eval kernel launch failed: cudaError_t {rc} (kernel id "
+            f"{kernel_id}, d={d}, {centers.dtype}, B={b}, block={block})"
+        )
     global _launches
     _launches += 1
     return i7, i5, i3, diffs
