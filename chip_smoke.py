@@ -21,7 +21,19 @@ Phases, each of which passes or raises (a failure exits nonzero):
    2^22 in float64, three cases, each of which must converge to its exact
    value in the iterations and evaluations recorded for it, with one
    kernel launch per evaluate step;
-5. timings with CUDA events at the main path's window size: the kernel
+5. device loop: repro_torch.core.adaptive.integrate_device on the same
+   three cases, bit-equal to phase 4's integrate (integral, error,
+   iterations, evaluations), with its host syncs and wall time beside
+   integrate's;
+6. distributed: repro_torch.core.distributed.integrate_distributed on four
+   ranks (rank r on cuda:(r mod device count): on one card they share
+   it), capacity 2^22 per rank, float64; each case converges, agrees with
+   phase 4's single-device run, spreads the work over every rank, and
+   takes the iterations and evaluations recorded for it, with one kernel
+   launch per rank per iteration;
+7. the Gauss-Kronrod rule (torch operations) on the card, with the
+   iterations and evaluations of the same run on the CPU;
+8. timings with CUDA events at the main path's window size: the kernel
    wrapper on SoA inputs, the same through kernels/ops.py (with the
    layout change the main path makes), and the plain version; beside them
    two bounds (see _bounds).
@@ -30,6 +42,7 @@ It ends with one JSON line per kernel summary and, last, the device line.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,6 +70,29 @@ FP64_LANES_PER_SM = 64
 # (iterations, n_evals) of each MAIN_CASES run, exact: the kernel's
 # redesign keeps its results, so the adaptive run takes the same path
 EXPECTED_PATH = {"f4": (29, 392709984), "genz_gaussian": (25, 10851868416), "f6": (27, 1713618)}
+# distributed cases: (integrand, d, rel_tol, redistribution), four ranks,
+# capacity 2^22 per rank (each GPU holds its own store, as in the paper)
+DIST_CASES = [
+    ("f4", 5, 1e-7, "ring"),
+    (MAIN_CASES[1][0], 8, 1e-5, "ring"),  # the theta path on every rank
+    ("f6", 5, 1e-4, "ring"),
+    ("f6", 5, 1e-4, "off"),
+]
+DIST_RANKS = 4
+DIST_CAPACITY = 1 << 22
+# (iterations, n_evals, evaluations per rank) of each distributed case,
+# exact: recorded from the first run on the card
+EXPECTED_DIST = {
+    "f4-ring": (30, 392709984, [98177496] * 4),
+    "genz_gaussian-ring": (23, 18534438144, [4633609536] * 4),
+    "f6-ring": (28, 1713618, [423615, 428637, 419430, 441936]),
+    "f6-off": (28, 1713618, [59706, 298902, 316386, 1038624]),
+}
+# Gauss-Kronrod on the card: (integrand, d, rel_tol), capacity 2^13; the
+# f3 case of tests/test_eval_window.py, and one that refines five times.
+# (iterations, n_evals) are those of the port's CPU run.
+GK_CASES = [("f3", 3, 1e-7), ("f4", 2, 1e-8)]
+EXPECTED_GK = {"f3": (0, 27000), "f4": (5, 14400)}
 # float64 kernel vs plain version: the bar of tests/test_kernels.py, and the
 # parity the kernel keeps (it repeats the plain version's operations)
 RTOL64 = 1e-12
@@ -300,7 +336,7 @@ def phase_main_path():
             largest_window=max(windows), eval_steps=len(windows),
             max_memory_allocated=torch.cuda.max_memory_allocated(),
             launches=launches, integral=res.integral, error=res.error,
-            exact=exact, true_rel_err=rel,
+            exact=exact, true_rel_err=rel, host_syncs=res.host_syncs,
         )
         log(json.dumps(row))
         assert res.status == "converged", row
@@ -310,6 +346,132 @@ def phase_main_path():
         total += launches
         rows.append(row)
     return total, rows
+
+
+def _timed(fn):
+    """(result, wall seconds) of ``fn()``, on the host clock between two
+    device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_device_loop(main_rows):
+    """integrate_device on the main-path cases: the same bits as phase 4."""
+    from repro_torch.core import adaptive
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+
+    total = 0
+    for (name, d, rel_tol, capacity), main in zip(MAIN_CASES, main_rows):
+        cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gm_kernel.reset_launch_count()
+        res, wall = _timed(lambda: adaptive.integrate_device(cfg, device="cuda"))
+        launches = gm_kernel.launch_count()
+        peak = torch.cuda.max_memory_allocated()
+        # walls of the two drivers in turns, warm
+        turns = {"integrate": [], "integrate_device": []}
+        for _ in range(2):
+            for driver, walls in turns.items():
+                walls.append(_timed(lambda: getattr(adaptive, driver)(cfg, device="cuda"))[1])
+        k = cfg.sync_every
+        # every block runs k evaluate steps; the last one's tail is discarded
+        steps = math.ceil((res.iterations + 1) / k) * k
+        row = dict(
+            case=main["case"], d=d, driver="integrate_device", sync_every=k,
+            status=res.status, wall_s=wall, host_syncs=res.host_syncs,
+            integrate_host_syncs=main["host_syncs"], walls_in_turns=turns,
+            iterations=res.iterations, n_evals=res.n_evals, eval_steps=steps,
+            launches=launches, max_memory_allocated=peak,
+        )
+        log(json.dumps(row))
+        assert res.status == "converged", row
+        assert (res.integral, res.error, res.iterations, res.n_evals) == (
+            main["integral"], main["error"], main["iterations"], main["n_evals"]), row
+        assert res.host_syncs <= math.ceil(res.iterations / k) + 2, row
+        assert launches == steps, row
+        total += launches
+    return total
+
+
+def phase_distributed(main_rows):
+    """Four ranks through the CUDA GM kernel, against phase 4's runs."""
+    from repro_torch.core import integrands
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.distributed import integrate_distributed
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+
+    single = {row["case"]: row for row in main_rows}
+    devices = cuda_devices(DIST_RANKS)
+    total = 0
+    imbalance = {}
+    for name, d, rel_tol, policy in DIST_CASES:
+        cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol,
+                               capacity=DIST_CAPACITY, redistribution=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gm_kernel.reset_launch_count()
+        res, wall = _timed(lambda: integrate_distributed(cfg, devices=devices))
+        launches = gm_kernel.launch_count()
+        case = name.split(":")[0]
+        exact = integrands.get(name).exact(d)
+        rel = abs(res.integral - exact) / abs(exact)
+        mean_share = res.n_evals / DIST_RANKS
+        row = dict(
+            case=case, d=d, rel_tol=rel_tol, redistribution=policy, ranks=DIST_RANKS,
+            devices=[str(x) for x in devices], capacity_per_rank=cfg.capacity,
+            status=res.status, wall_s=wall, iterations=res.iterations,
+            n_evals=res.n_evals, evals_per_s=res.n_evals / wall,
+            evals_per_rank=res.evals_per_device.tolist(),
+            share_of_mean=(res.evals_per_device / mean_share).tolist(),
+            mean_imbalance=res.mean_imbalance(), regions_moved=res.moved,
+            host_syncs=res.host_syncs, launches=launches,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            integral=res.integral, error=res.error, exact=exact, true_rel_err=rel,
+            single_integral=single[case]["integral"],
+        )
+        log(json.dumps(row))
+        assert res.status == "converged", row
+        assert rel <= 10 * rel_tol, row
+        assert abs(res.integral - single[case]["integral"]) <= 4 * rel_tol * abs(exact), row
+        assert min(res.evals_per_device) > 0.01 * mean_share, row
+        assert launches == res.iterations * DIST_RANKS > 0, row
+        got = (res.iterations, int(res.n_evals), [int(x) for x in res.evals_per_device])
+        assert got == EXPECTED_DIST[f"{case}-{policy}"], (got, row)
+        imbalance[(case, policy)] = res.mean_imbalance()
+        total += launches
+    assert imbalance[("f6", "ring")] <= imbalance[("f6", "off")] + 0.05, imbalance
+    return total
+
+
+def phase_gauss_kronrod():
+    """The GK rule's torch operations on the card, against the CPU run."""
+    from repro_torch.core import adaptive
+    from repro_torch.core import integrands
+    from repro_torch.core.config import QuadratureConfig
+
+    for name, d, rel_tol in GK_CASES:
+        cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=1 << 13,
+                               rule="gauss_kronrod", max_iters=200)
+        res, wall = _timed(lambda: adaptive.integrate(cfg, device="cuda"))
+        cpu = adaptive.integrate(cfg, device="cpu")
+        exact = integrands.get(name).exact(d)
+        rel = abs(res.integral - exact) / abs(exact)
+        row = dict(case=name, d=d, rel_tol=rel_tol, rule="gauss_kronrod",
+                   status=res.status, wall_s=wall, iterations=res.iterations,
+                   n_evals=res.n_evals, integral=res.integral, error=res.error,
+                   cpu_integral=cpu.integral, exact=exact, true_rel_err=rel)
+        log(json.dumps(row))
+        assert res.status == cpu.status == "converged", row
+        assert rel <= 5 * rel_tol, row
+        assert (res.iterations, int(res.n_evals)) == (cpu.iterations, int(cpu.n_evals)) \
+            == EXPECTED_GK[name], row
+        assert abs(res.integral - cpu.integral) <= cpu.error, row
 
 
 # FP64 instructions of the two timed integrands in the kernel's table form
@@ -395,7 +557,10 @@ def main():
     smi = phase_device()
     phase_build()
     phase_kernel_vs_plain()
-    launches, _ = phase_main_path()
+    launches, main_rows = phase_main_path()
+    launches += phase_device_loop(main_rows)
+    launches += phase_distributed(main_rows)
+    phase_gauss_kronrod()
     timings = phase_timing()
     t = timings[0]
     kernel = dict(

@@ -8,8 +8,10 @@ iteration), and then splits and compacts.  Windows are picked on the host
 from the active count, which the host tracks exactly
 (:func:`repro_torch.core.split.next_population`).
 
-The device-resident driver of the JAX package (``integrate_device``) is not
-ported yet: PyTorch has no ``while_loop``.
+:func:`integrate_device` is the port of the JAX package's device-resident
+``lax.while_loop`` driver: it runs ``cfg.sync_every`` iterations per host
+sync, on windows sized from an upper bound of the population (see its
+docstring).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class AdaptiveResult:
     n_evals: float
     n_active: int
     overflowed: bool
+    host_syncs: int = 0  # reads of device values by the host during the run
 
     def summary(self) -> str:
         return (
@@ -243,6 +246,7 @@ def integrate(
     integral = error = 0.0
     n_active = cfg.resolved_n_init()
     it = 0
+    syncs = 0
     for _ in range(cfg.max_iters):
         eval_w = region_store.select_window(ladder, n_active)
         state = make_eval_step(cfg, rule, window=eval_w)(state)
@@ -257,6 +261,7 @@ def integrate(
         synced = torch.stack(
             [integral_t.double(), error_t.double(), fin.sum().double()]
         ).tolist()
+        syncs += 1
         integral, error, n_fin = synced[0], synced[1], int(synced[2])
         if callback is not None:
             callback(it, integral, error, n_active)
@@ -265,7 +270,9 @@ def integrate(
             # the offending regions and stop with the best-effort estimate
             # of the surviving population (terminal status "nonfinite")
             state, gi, ge, na = quarantine_step(state)
-            integral, error, n_active = float(gi), float(ge), int(na)
+            gi, ge, na = torch.stack([gi.double(), ge.double(), na.double()]).tolist()
+            syncs += 1
+            integral, error, n_active = gi, ge, int(na)
             nonfinite = True
             break
         budget = max(cfg.abs_tol, abs(integral) * cfg.rel_tol)
@@ -279,13 +286,146 @@ def integrate(
         it += 1
         n_active = next_population(n_active - n_fin, C)
 
-    overflowed = bool(state.overflowed)
+    n_evals, overflowed = torch.stack(
+        [state.n_evals.double(), state.overflowed.double()]
+    ).tolist()
+    syncs += 1
+    overflowed = bool(overflowed)
     return AdaptiveResult(
         integral=integral,
         error=error,
         status=result_status(converged, n_active, it, cfg, overflowed, nonfinite),
         iterations=it,
-        n_evals=float(state.n_evals),
+        n_evals=n_evals,
         n_active=n_active,
         overflowed=overflowed,
+        host_syncs=syncs,
+    )
+
+
+# Fields of one iteration's snapshot in integrate_device, read by the host
+# once per block of iterations.
+_SNAP = ("integral", "error", "n_active", "n_evals", "it", "overflowed")
+
+
+def _record(device: torch.device):
+    """An event behind the work queued so far on ``device`` (None on the
+    CPU, where a copy has finished when it returns)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _landed(event) -> bool:
+    """Whether the work behind ``event`` has finished, without waiting."""
+    return event is None or event.query()
+
+
+def integrate_device(
+    cfg: QuadratureConfig, integrand=None, device="cuda"
+) -> AdaptiveResult:
+    """Device-resident driver: ``cfg.sync_every`` iterations per host sync.
+
+    The JAX package runs the whole loop as one ``lax.while_loop`` on the
+    device.  PyTorch has no such loop, and the active windows are host
+    integers, so this driver runs blocks of K = ``cfg.sync_every``
+    iterations without reading anything back:
+
+    - after each advance the population is copied to pinned host memory
+      without waiting (with a CUDA event behind it).  Iteration j sizes its
+      eval window for ``min(n * 2^(j - i), C)`` regions, where n is the
+      newest population whose copy has landed (that of iteration i, found
+      by querying the events) and its advance window for twice that: an
+      upper bound of the population, since a split at most doubles it.
+      Any window that covers the population gives the same bits
+      (``region_store.tree_sum``), so the result equals :func:`integrate`'s
+      exactly, whether a copy landed in time or not; when the host runs
+      ahead of the device, the windows grow up to 2^(K-1) times the rows;
+    - every iteration records on the device a snapshot of (integral, error,
+      active count, ``n_evals``, ``it``, ``overflowed``) after its evaluate
+      step;
+    - the host reads the block's snapshots with one sync and takes the
+      first iteration that converged (or found no active region).  The
+      iterations after it in the same block ran on a copy of the future
+      and are discarded: the result is read from the snapshot, not from
+      the state.
+
+    As in the JAX package's loop, a run cut by ``cfg.max_iters`` reports
+    the estimates of the state after its last advance (its new children
+    still unevaluated), and there is no quarantine: ``nonfinite`` comes
+    from the final values.  ``iterations`` is the state's ``it``.  The
+    host syncs are at most ceil((iterations + 1) / K).
+    """
+    device = resolve_device(device)
+    cfg, lo, hi, total_volume, rule, state = _setup(cfg, integrand, device)
+    width = torch.as_tensor(hi - lo, device=device)
+    ladder = eval_ladder(cfg)
+    adv_ladder = advance_ladder(cfg)
+    C = cfg.capacity
+
+    # the population after each advance of a block, copied without a sync
+    counts = torch.empty(cfg.sync_every, dtype=torch.int64, pin_memory=device.type == "cuda")
+    n = cfg.resolved_n_init()  # exact population at the start of a block
+    it = 0
+    syncs = 0
+    final = None
+    while final is None:
+        steps = min(cfg.sync_every, cfg.max_iters - it)
+        snaps = []
+        known_j, known_n = 0, n  # newest exact population: at iteration known_j
+        pending = []  # (iteration whose population it is, event) of copies in flight
+        for j in range(steps):
+            while pending and _landed(pending[0][1]):
+                known_j = pending.pop(0)[0]
+                known_n = int(counts[known_j - 1])
+            bound = min(known_n << (j - known_j), C)
+            state = make_eval_step(cfg, rule, window=region_store.select_window(ladder, bound))(state)
+            w = region_store.select_window(adv_ladder, advance_target(bound, C))
+            ww = None if w == C else w
+            integral, error, fin = classify_window(cfg, state, total_volume, width, ww)
+            snap = torch.stack([x.double() for x in (
+                integral, error, state.active[:w].sum(), state.n_evals, state.it,
+                state.overflowed)])
+            state = classify_split_compact(state, fin, window=ww)
+            state.it += 1  # in place, on the device
+            counts[j].copy_(state.active[:w].sum(), non_blocking=True)
+            pending.append((j + 1, _record(device)))
+            snaps.append(snap)
+        if it + steps == cfg.max_iters:
+            # the loop ends after this advance: its estimates are the result
+            gi, ge = state.global_estimates()
+            snaps.append(torch.stack([x.double() for x in (
+                gi, ge, state.active.sum(), state.n_evals, state.it, state.overflowed)]))
+        rows = [dict(zip(_SNAP, r)) for r in torch.stack(snaps).tolist()]
+        syncs += 1
+        for row in rows[:steps]:
+            budget = max(cfg.abs_tol, abs(row["integral"]) * cfg.rel_tol)
+            if row["error"] <= budget or row["n_active"] == 0:
+                final = row
+                break
+        if final is None:
+            if it + steps == cfg.max_iters:
+                final = rows[-1]
+            else:
+                n = int(counts[steps - 1])  # landed: the read above synced
+                it += steps
+
+    integral, error = final["integral"], final["error"]
+    n_active, iterations = int(final["n_active"]), int(final["it"])
+    overflowed = bool(final["overflowed"])
+    nonfinite = not (math.isfinite(integral) and math.isfinite(error))
+    budget = max(cfg.abs_tol, abs(integral) * cfg.rel_tol)
+    return AdaptiveResult(
+        integral=integral,
+        error=error,
+        status=result_status(
+            error <= budget, n_active, iterations, cfg, overflowed, nonfinite
+        ),
+        iterations=iterations,
+        n_evals=final["n_evals"],
+        n_active=n_active,
+        overflowed=overflowed,
+        host_syncs=syncs,
     )

@@ -148,13 +148,15 @@ def genz_malik_eval_soa(
         return i7, i5, i3, diffs
     consts = _consts(d)
     stream = torch.cuda.current_stream(centers.device).cuda_stream
-    rc = _entry(centers.dtype)(
-        centers.device.index,
-        kernel_id, d, b, block,
-        centers.data_ptr(), halfw.data_ptr(), th_ptr, th_rs, th_ls,
-        i7.data_ptr(), i5.data_ptr(), i3.data_ptr(), diffs.data_ptr(),
-        ctypes.cast(consts, ctypes.c_void_p), stream,
-    )
+    # the launcher sets the CUDA device; the guard restores the caller's
+    with torch.cuda.device(centers.device):
+        rc = _entry(centers.dtype)(
+            centers.device.index,
+            kernel_id, d, b, block,
+            centers.data_ptr(), halfw.data_ptr(), th_ptr, th_rs, th_ls,
+            i7.data_ptr(), i5.data_ptr(), i3.data_ptr(), diffs.data_ptr(),
+            ctypes.cast(consts, ctypes.c_void_p), stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"genz_malik_eval kernel launch failed: cudaError_t {rc} (kernel id "

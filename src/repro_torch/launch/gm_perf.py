@@ -3,7 +3,7 @@
     python src/repro_torch/launch/gm_perf.py time [--cases f4:5,genz_gaussian:8]
         [--batch 1048576] [--blocks 64,128,256,512] [--dtype float64] [--reps 50]
     python src/repro_torch/launch/gm_perf.py ptxas [--sass Li5E2F4]
-    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR]
+    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed]
 
 ``time`` times the kernel wrapper (``kernels.genz_malik_eval.genz_malik_eval_soa``)
 with CUDA events on SoA inputs, for each case (integrand:d), batch size and
@@ -23,7 +23,10 @@ NAME (e.g. ``Li5E2F4``).
 under the host clock, and once under ``torch.profiler``, and splits the
 profiled run's wall time into the GM kernel, the other device work (the
 advance: sort, gathers, tree sums, classify) and the time the device sat
-idle (host gaps).
+idle (host gaps).  ``--drivers`` picks the drivers, each on every case:
+``integrate`` (the default), ``device`` (``integrate_device``) and
+``distributed`` (``integrate_distributed`` on four ranks over the visible
+GPUs, capacity per rank as the case's).
 
 Each result is one JSON line, with the card's name and power limit.
 Needs a CUDA device; there is no CPU fallback.  ``chip_smoke.py`` shares the
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import os
 import re
@@ -167,19 +171,27 @@ def cmd_profile(args):
 
     from repro_torch.core import adaptive
     from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.distributed import integrate_distributed
+    from repro_torch.core.ranks import cuda_devices
 
+    drivers = {
+        "integrate": lambda cfg: adaptive.integrate(cfg, device="cuda"),
+        "device": lambda cfg: adaptive.integrate_device(cfg, device="cuda"),
+        "distributed": lambda cfg: integrate_distributed(cfg, devices=cuda_devices(4)),
+    }
     smi = card()
-    for name, d, rel_tol, capacity in MAIN_CASES:
+    for driver, (name, d, rel_tol, capacity) in itertools.product(args.drivers, MAIN_CASES):
+        run = drivers[driver]
         cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
-        adaptive.integrate(cfg, device="cuda")  # build, allocate, warm up
+        run(cfg)  # build, allocate, warm up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = adaptive.integrate(cfg, device="cuda")
+        res = run(cfg)
         torch.cuda.synchronize()
         wall_plain = time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            adaptive.integrate(cfg, device="cuda")
+            run(cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         # the device's own events (kernels, copies, memsets); the aten ops
@@ -197,9 +209,10 @@ def cmd_profile(args):
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         case = name.split(":")[0]
         if args.trace_dir:
-            prof.export_chrome_trace(f"{args.trace_dir}/main_path_{case}_d{d}.json")
+            prof.export_chrome_trace(f"{args.trace_dir}/{driver}_{case}_d{d}.json")
         print(json.dumps(dict(
-            case=case, d=d, iterations=res.iterations, n_evals=res.n_evals,
+            driver=driver, case=case, d=d, iterations=res.iterations, n_evals=res.n_evals,
+            host_syncs=res.host_syncs,
             wall_s=wall_plain, profiled_wall_s=wall, device_busy_s=total,
             gm_kernel_s=gm, other_device_s=total - gm, idle_s=wall - total,
             gm_share=gm / wall, advance_share=(total - gm) / wall,
@@ -212,6 +225,14 @@ def cmd_profile(args):
 
 def _ints(s):
     return [int(v) for v in s.split(",")]
+
+
+def _drivers(s):
+    names = s.split(",")
+    unknown = set(names) - {"integrate", "device", "distributed"}
+    if unknown:
+        raise argparse.ArgumentTypeError(f"unknown drivers {sorted(unknown)}")
+    return names
 
 
 def _cases(s):
@@ -233,6 +254,8 @@ def main(argv=None):
                    help="print the SASS opcode counts of kernels whose name contains this")
     p = sub.add_parser("profile", help="torch.profiler breakdown of the main path")
     p.add_argument("--trace-dir", default=None, help="write Chrome traces here")
+    p.add_argument("--drivers", type=_drivers, default=["integrate"],
+                   help="comma-separated: integrate, device, distributed")
     args = ap.parse_args(argv)
     if args.cmd != "ptxas" and not torch.cuda.is_available():
         raise SystemExit("gm_perf: no CUDA device; this tool measures the card only")

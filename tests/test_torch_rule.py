@@ -173,8 +173,9 @@ def test_make_rule_routes_and_refuses():
     rule = trules.make_rule(cfg, user_fn, device=torch.device("cpu"))
     est, err, axis = rule.eval_batch(torch.full((4, 2), 0.5), torch.full((4, 2), 0.5))
     assert est.shape == (4,) and bool(torch.all(err >= 0))
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        trules.make_rule(TConfig(d=2, rule="gauss_kronrod"))
+    assert isinstance(trules.make_rule(TConfig(d=2, rule="gauss_kronrod")), trules.GaussKronrodRule)
+    with pytest.raises(ValueError, match="prohibitive"):
+        trules.make_rule(TConfig(d=7, rule="gauss_kronrod"))
     with pytest.raises(ValueError, match="theta requires"):
         trules.make_rule(cfg, theta={"a": np.ones(2)})
 
