@@ -13,10 +13,11 @@ Phases, each of which passes or raises (a failure exits nonzero):
 3. kernel vs its plain PyTorch version, on the card, for every integrand
    and family over d in {1,2,3,5,8,13} x B in {1, 257, 65536}, every other
    d up to 16 at B = 257 (fewer integrands above 13, where the plain
-   version is slow), block sizes, and a per-lane theta (one theta per
-   region); float64
-   at the bars of tests/test_kernels.py and within 1e-14 relative, float32
-   against the float64 plain version;
+   version is slow), block sizes, a per-lane theta (one theta per
+   region), and the batch service's per-slot theta columns (lanes_per_col
+   in {1, 7, 256, 1000}, genz_gaussian and genz_product_peak at d in
+   {2, 5, 8}); float64 at the bars of tests/test_kernels.py and within
+   1e-14 relative, float32 against the float64 plain version;
 4. main path: repro_torch.core.adaptive.integrate on the card at capacity
    2^22 in float64, three cases, each of which must converge to its exact
    value in the iterations and evaluations recorded for it, with one
@@ -36,7 +37,18 @@ Phases, each of which passes or raises (a failure exits nonzero):
 8. timings with CUDA events at the main path's window size: the kernel
    wrapper on SoA inputs, the same through kernels/ops.py (with the
    layout change the main path makes), and the plain version; beside them
-   two bounds (see _bounds).
+   two bounds (see _bounds);
+9. the batch service (repro_torch.service) at a real size: gm_perf.py's
+   SERVICE fleet (192 Gaussians at d = 5, float64, 64 slots of 2^19
+   regions, rel_tol 1e-3 / 1e-7 by request parity) on one rank, then on
+   four ranks (cuda:(r mod count), 16 slots each, ring migration).  Every
+   request ends converged, or evicted with status capacity where its
+   regions outgrow the store, within 10 max(error, budget) of its exact
+   value; the
+   two runs give the same results bit for bit; the first four requests
+   equal integrate()'s on their theta and tolerance bit for bit; one GM
+   launch per rank per iteration with a live slot; migrations on four
+   ranks.
 
 It ends with one JSON line per kernel summary and, last, the device line.
 """
@@ -248,6 +260,46 @@ def _check_per_lane(rng):
     return worst, 2 * 4 * len(integrands.PARAM_REGISTRY)
 
 
+def _check_theta_cols(rng):
+    """The batch service's form: one theta column per slot, read by runs
+    of lanes_per_col lanes (a block of 256 threads straddles slots at 7
+    and 1000), against the plain version on the same columns."""
+    from repro_torch.core import integrands
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels.ref import genz_malik_eval_soa_ref
+
+    worst, n = 0.0, 0
+    for name in ("genz_gaussian", "genz_product_peak"):
+        entry = integrands.PARAM_REGISTRY[name]
+        for d in (2, 5, 8):
+            for lanes in (1, 7, 256, 1000):
+                slots = max(3, 600 // lanes)
+                c = torch.as_tensor(rng.uniform(0.1, 0.9, (d, slots * lanes)), device="cuda")
+                h = torch.as_tensor(rng.uniform(0.01, 0.1, (d, slots * lanes)), device="cuda")
+                thetas = [entry.sample_theta(d, rng) for _ in range(slots)]
+                cols = torch.as_tensor(np.stack(
+                    [np.concatenate([t[k] for k in entry.theta_fields]) for t in thetas], 1),
+                    device="cuda")
+
+                def fn(x, r, entry=entry, d=d):
+                    return entry.fn(x, dict(zip(entry.theta_fields, r.split(d))))
+
+                what = f"{name} d={d} lanes_per_col={lanes}"
+                got = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c, h, cols, lanes_per_col=lanes)
+                ref = genz_malik_eval_soa_ref(fn, c, h, cols, lanes_per_col=lanes)
+                worst = max(worst, _check64(got, ref, what + " per-slot theta"))
+                got32 = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c.float(), h.float(),
+                                                      cols.float(), lanes_per_col=lanes)
+                ref32 = genz_malik_eval_soa_ref(fn, c.float(), h.float(), cols.float(),
+                                                lanes_per_col=lanes)
+                for g, r in zip(got32[:3], ref32[:3]):
+                    torch.testing.assert_close(
+                        g, r, rtol=1e-5, atol=1e-6 * float(r.abs().max()) + 1e-38,
+                        msg=lambda m: f"{what} per-slot float32: {m}")
+                n += 2
+    return worst, n
+
+
 def phase_kernel_vs_plain():
     from repro_torch.core import integrands
     from repro_torch.kernels import genz_malik_eval as gm_kernel
@@ -293,11 +345,14 @@ def phase_kernel_vs_plain():
     worst_lane, n_lane = _check_per_lane(rng)
     worst64 = max(worst64, worst_lane)
     n_checks += n_lane
+    worst_cols, n_cols = _check_theta_cols(rng)
+    worst64 = max(worst64, worst_cols)
+    n_checks += n_cols
     torch.cuda.synchronize()
     launched = gm_kernel.launch_count() - before
     assert launched == n_checks, (launched, n_checks)
     log(f"kernel vs plain: {n_checks} checks passed in {time.perf_counter() - t0:.1f} s "
-        f"(d = 1..16, broadcast and per-lane theta); largest relative error float64 "
+        f"(d = 1..16, broadcast, per-lane and per-slot theta); largest relative error float64 "
         f"{worst64:.3e} (bars {RTOL64:g} and {PARITY64:g}); "
         f"largest float32 error {worst32:.3f} of its bar; {overflowed} float32 "
         f"estimates overflowed in both the kernel and the plain version")
@@ -553,6 +608,77 @@ def phase_timing():
     return out
 
 
+def phase_service():
+    """The batch service's fleet on one rank and on four; see the docstring."""
+    from repro_torch.core import adaptive
+    from repro_torch.core import integrands
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.launch.gm_perf import SERVICE, serve_fleet, service_requests
+    from repro_torch.service.sharded_selftest import tuples
+
+    family = integrands.PARAM_REGISTRY[SERVICE["integrand"]]
+    d = SERVICE["d"]
+    requests = service_requests()
+    total = 0
+    runs = {}
+    for n in (1, 4):
+        devices = cuda_devices(n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gm_kernel.reset_launch_count()
+        (results, sched), wall = _timed(lambda: serve_fleet(devices))
+        launches = gm_kernel.launch_count()
+        stats = sched.last_stats
+        steps = sched.engine.eval_steps.tolist()
+        n_evals = sum(r.n_evals for r in results)
+        row = dict(
+            phase="service", ranks=n, devices=[str(x) for x in devices],
+            slots=SERVICE["batch_slots"], capacity_per_slot=SERVICE["capacity"],
+            requests=len(results), wall_s=wall, requests_per_s=len(results) / wall,
+            n_evals=n_evals, evals_per_s=n_evals / wall, iterations=stats["iterations"],
+            dispatches=stats["dispatches"], launches=launches, eval_steps_per_rank=steps,
+            migrations=stats["migrations"], max_memory_allocated=torch.cuda.max_memory_allocated(),
+            statuses={s: sum(r.status == s for r in results) for s in {r.status for r in results}},
+        )
+        log(json.dumps(row))
+        assert len(results) == len(requests), row
+        # one GM launch per rank per iteration in which the rank had a live
+        # slot; on one rank every iteration has one
+        assert launches == sum(steps) > 0, row
+        assert max(steps) <= stats["iterations"], row
+        if n == 1:
+            assert launches == stats["iterations"], row
+        # A request whose regions outgrow its 2^19-row store ends "capacity"
+        # (evicted evict_patience iterations after the overflow, as in the
+        # JAX service); its best-effort estimate is held to the same bar.
+        assert set(row["statuses"]) <= {"converged", "capacity"}, row
+        for req, res in zip(requests, results):
+            exact = family.exact(d, req.theta)
+            budget = max(1e-16, abs(exact) * req.rel_tol)
+            assert abs(res.integral - exact) <= 10 * max(res.error, budget), (res, exact)
+        runs[n] = results
+        total += launches
+    assert tuples(runs[1]) == tuples(runs[4]), [
+        (a, b) for a, b in zip(tuples(runs[1]), tuples(runs[4])) if a != b][:2]
+    assert row["migrations"] > 0, row
+    # the first four requests against the single-problem driver on the card
+    for req, res in zip(requests[:4], runs[1][:4]):
+        cfg = QuadratureConfig(**{**SERVICE, "integrand": integrands.to_spec(family, req.theta),
+                                  "rel_tol": req.rel_tol})
+        gm_kernel.reset_launch_count()
+        single, wall = _timed(lambda: adaptive.integrate(cfg, device="cuda"))
+        total += gm_kernel.launch_count()
+        log(json.dumps(dict(phase="service_vs_integrate", req_id=req.req_id, rel_tol=req.rel_tol,
+                            iterations=single.iterations, n_evals=single.n_evals, wall_s=wall,
+                            integral=single.integral, error=single.error)))
+        assert (res.integral, res.error, res.status, res.iterations, res.n_evals) == (
+            single.integral, single.error, single.status, single.iterations,
+            single.n_evals), (res, single)
+    return total
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -562,6 +688,7 @@ def main():
     launches += phase_distributed(main_rows)
     phase_gauss_kronrod()
     timings = phase_timing()
+    launches += phase_service()
     t = timings[0]
     kernel = dict(
         name="genz_malik_eval", route="cuda",

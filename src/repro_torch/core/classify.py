@@ -47,17 +47,21 @@ def classify(
 ) -> torch.Tensor:
     """Return the mask of active regions to finalise this iteration.
 
-    ``n_active`` defaults to the local active count.  ``budget`` and
-    ``rel_tol`` override the config-derived error budget and relative
-    tolerance (``rel_tol`` only affects the aggressive classifier).
+    The region axis is the last of ``est``, ``err`` and ``active`` (the
+    second last of ``halfw``); leading axes are problems of a stacked store
+    (the batch service), each classified on its own.  ``n_active`` defaults
+    to the local active count of each problem.  ``budget`` and ``rel_tol``
+    override the config-derived error budget and relative tolerance
+    (``rel_tol`` only affects the aggressive classifier); with leading axes
+    they carry them, with a trailing axis of size 1.
     """
     if budget is None:
         budget = error_budget(cfg, global_estimate)
     if rel_tol is None:
         rel_tol = cfg.rel_tol
-    vol = row_prod((2.0 * halfw).T)
+    vol = row_prod((2.0 * halfw).movedim(-1, 0))
     if n_active is None:
-        n_active = torch.sum(active)
+        n_active = torch.sum(active, dim=-1, keepdim=True)
     n_active = torch.clamp(n_active, min=1)
 
     share = 0.25 * budget / n_active.to(err.dtype)

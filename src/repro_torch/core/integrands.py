@@ -383,6 +383,16 @@ def parse_spec(spec: str) -> tuple[ParamIntegrand, dict]:
     return family, theta
 
 
+def to_spec(family: ParamIntegrand, theta) -> str:
+    """The spec string of ``(family, theta)``, inverse of :func:`parse_spec`
+    bit for bit (each float is written as its ``repr``)."""
+    groups = (
+        ",".join(repr(float(v)) for v in np.asarray(theta[k], np.float64).reshape(-1))
+        for k in family.theta_fields
+    )
+    return ":".join([family.name, *groups])
+
+
 def from_spec(spec: str) -> Integrand:
     """Bind a family spec string (see :func:`parse_spec`) into an Integrand."""
     family, theta = parse_spec(spec)

@@ -162,6 +162,40 @@ def init_state(
     return st
 
 
+def stacked_empty_state(
+    n: int, capacity: int, d: int, dtype: torch.dtype, device
+) -> RegionState:
+    """Empty store with a leading ``(n,)`` axis on every field.
+
+    The batch service keeps one sub-store per problem slot; each slice along
+    the leading axis is a store of its own and keeps the active-window
+    invariant on its own.
+    """
+    one = empty_state(capacity, d, dtype, "meta")
+    return RegionState(
+        **{
+            k: torch.zeros((n,) + getattr(one, k).shape, dtype=getattr(one, k).dtype,
+                           device=device)
+            for k in FIELDS
+        }
+    )
+
+
+def write_slot(stacked: RegionState, slot: int, single: RegionState) -> RegionState:
+    """Overwrite slice ``slot`` of a stacked store with a single store, in place.
+
+    ``slot`` is a host integer; an index outside the stack raises (the JAX
+    package's scatter would drop it silently).  ``single`` may live on
+    another device than ``stacked``.
+    """
+    n = stacked.centers.shape[0]
+    if not 0 <= int(slot) < n:
+        raise IndexError(f"slot {slot} out of range [0, {n})")
+    for k in FIELDS:
+        getattr(stacked, k)[slot].copy_(getattr(single, k), non_blocking=True)
+    return stacked
+
+
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> RegionState:
     """Build a state from numpy arrays, one per field of :class:`RegionState`.
 

@@ -73,16 +73,27 @@ class GenzMalikRule:
             }
         return self._theta_on[key]
 
-    def eval_batch(self, centers: torch.Tensor, halfw: torch.Tensor):
-        """(B, d) regions -> (est, err, split_axis) each of shape (B,)."""
+    def eval_batch(
+        self,
+        centers: torch.Tensor,
+        halfw: torch.Tensor,
+        theta_cols: Optional[torch.Tensor] = None,
+    ):
+        """(B, d) regions -> (est, err, split_axis) each of shape (B,).
+
+        ``theta_cols`` (``(n_theta, S)``, S dividing B) gives each run of
+        ``B // S`` regions its own theta column in place of the rule's theta:
+        the batch service's one evaluation over every live slot.
+        """
         i7, i5, i3, diffs = kernel_ops.genz_malik_eval(
             self.integrand,
             centers,
             halfw,
-            theta=self._theta(centers),
+            theta=None if theta_cols is not None else self._theta(centers),
             block_regions=self.block_regions,
+            theta_cols=theta_cols,
         )
-        vol = row_prod((2.0 * halfw).T)
+        vol = row_prod((2.0 * halfw).movedim(-1, 0))
         maxdiff = torch.amax(diffs, dim=-1)
         err = two_level_error(i7, i5, i3, vol, maxdiff, self.noise_mult)
         axis = _select_axis(diffs, halfw)

@@ -37,12 +37,13 @@ from repro_torch.core.region_store import RegionState, masked_sums
 def survivor_sort_perm(err: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """Permutation compacting active slots to the front by descending error.
 
-    Freed/inactive slots sink to the back.  The sort is stable, as
+    Sorts along the last axis (leading axes are problems of a stacked
+    store).  Freed/inactive slots sink to the back.  The sort is stable, as
     ``jnp.argsort`` is, so equal keys keep their relative order.
     """
     big = torch.finfo(err.dtype).max
     key = torch.where(active, -err, torch.full_like(err, big))
-    return torch.sort(key, stable=True).indices
+    return torch.sort(key, dim=-1, stable=True).indices
 
 
 def _window(state: RegionState, window: Optional[int]) -> int:
@@ -62,38 +63,49 @@ def next_population(n_remaining: int, capacity: int) -> int:
     return n + min(n, capacity - n)
 
 
-def classify_split_compact(
-    state: RegionState,
-    finalize_mask: torch.Tensor,
-    window: Optional[int] = None,
-) -> RegionState:
-    """Apply the classifier verdict, then split every surviving region.
+# The window-sized fields the advance rewrites, and the per-problem scalars.
+ROWS = ("centers", "halfw", "est", "err", "axis", "active", "fresh")
+SCALARS = ("fin_integral", "fin_error", "overflowed")
 
-    Under capacity pressure only the top-(free slots) regions by error are
-    split; the rest stay active-but-unsplit.  ``overflowed`` records that
-    pressure was ever hit.  ``finalize_mask`` has shape ``(window,)``
-    (``(capacity,)`` when ``window`` is ``None``).
+
+def split_compact_rows(
+    capacity: int, rows: dict, scalars: dict, finalize_mask: torch.Tensor
+) -> tuple[dict, dict]:
+    """The advance over a leading problem axis: ``(S, w, ...)`` rows.
+
+    ``rows`` holds the fields of :data:`ROWS` over the leading ``w`` rows of
+    S stores (``centers`` and ``halfw`` ``(S, w, d)``, the rest ``(S, w)``),
+    ``scalars`` the fields of :data:`SCALARS` as ``(S,)``, and
+    ``finalize_mask`` is ``(S, w)``.  Every problem is advanced on its own,
+    by batched torch operations over the problem axis: the per-problem counts
+    are ``(S,)`` tensors compared against ``idx[None, :]``, the gathers run
+    along dim 1.  Returns new ``(rows, scalars)``.  A single store is the
+    ``S = 1`` case (:func:`classify_split_compact`).
     """
-    C = state.capacity
-    w = _window(state, window)
-    act_w = state.active[:w]
+    C = capacity
+    w = rows["active"].shape[1]
+    act_w = rows["active"]
     fin = finalize_mask & act_w
-    fin_sums = masked_sums(fin, state.est[:w], state.err[:w])
-    fin_integral = state.fin_integral + fin_sums[0]
-    fin_error = state.fin_error + fin_sums[1]
+    fin_sums = masked_sums(fin, rows["est"], rows["err"])
+    fin_integral = scalars["fin_integral"] + fin_sums[0]
+    fin_error = scalars["fin_error"] + fin_sums[1]
     active = act_w & ~fin
 
-    perm = survivor_sort_perm(state.err[:w], active)
+    perm = survivor_sort_perm(rows["err"], active)
 
-    centers = state.centers[:w][perm]
-    halfw = state.halfw[:w][perm]
-    est = state.est[:w][perm]
-    err = state.err[:w][perm]
-    axis = state.axis[:w][perm]
-    active = active[perm]
+    def take(x):
+        index = perm if x.ndim == 2 else perm[..., None]
+        return torch.take_along_dim(x, index, dim=1)
 
-    n_act = torch.sum(active)
-    idx = torch.arange(w, device=active.device)
+    centers = take(rows["centers"])
+    halfw = take(rows["halfw"])
+    est = take(rows["est"])
+    err = take(rows["err"])
+    axis = take(rows["axis"])
+    active = take(active)
+
+    n_act = torch.sum(active, dim=1)
+    idx = torch.arange(w, device=active.device)[None, :]
 
     # Graceful degradation under memory pressure: if the store is nearly
     # full, force-finalise the lowest-error tail so splitting can always
@@ -108,11 +120,13 @@ def classify_split_compact(
     n_act = torch.clamp(n_act, max=limit)
 
     k = torch.minimum(n_act, C - n_act)  # regions we can split (+1 slot each)
-    overflowed = state.overflowed | (k < n_act) | torch.any(forced)
+    overflowed = scalars["overflowed"] | (k < n_act) | torch.any(forced, dim=1)
+    n_act, k = n_act[:, None], k[:, None]
 
     split_row = idx < k  # rows being split (highest error first)
 
-    onehot = torch.arange(state.d, device=axis.device)[None, :] == axis[:, None]
+    d = centers.shape[-1]
+    onehot = torch.arange(d, device=axis.device) == axis[..., None]
     h_half = torch.where(onehot, 0.5 * halfw, halfw)
     # children tile the parent exactly: centres at c -+ h/2 along the axis
     shift = torch.where(onehot, h_half, torch.zeros_like(h_half))
@@ -120,17 +134,21 @@ def classify_split_compact(
     child_b_centers = centers + shift
 
     # Child A overwrites the parent row.
-    new_centers = torch.where(split_row[:, None], child_a_centers, centers)
-    new_halfw = torch.where(split_row[:, None], h_half, halfw)
+    new_centers = torch.where(split_row[..., None], child_a_centers, centers)
+    new_halfw = torch.where(split_row[..., None], h_half, halfw)
 
     # Child B of parent row i lands in row n_act + k - 1 - i (reversed
     # error order, as in the JAX package).  Written as a gather: row r of
     # [n_act, n_act + k) takes parent n_act + k - 1 - r; other rows keep
     # their values, so no out-of-range scatter is needed.
     child_b = (idx >= n_act) & (idx < n_act + k)
-    src = torch.clamp(n_act + k - 1 - idx, 0, w - 1)
-    new_centers = torch.where(child_b[:, None], child_b_centers[src], new_centers)
-    new_halfw = torch.where(child_b[:, None], h_half[src], new_halfw)
+    src = torch.clamp(n_act + k - 1 - idx, 0, w - 1)[..., None]
+    new_centers = torch.where(
+        child_b[..., None], torch.take_along_dim(child_b_centers, src, dim=1), new_centers
+    )
+    new_halfw = torch.where(
+        child_b[..., None], torch.take_along_dim(h_half, src, dim=1), new_halfw
+    )
 
     active = active | (idx < n_act + k)
     fresh = split_row | child_b
@@ -140,21 +158,36 @@ def classify_split_compact(
     axis = torch.where(fresh, torch.zeros_like(axis), axis)
     fresh = fresh & active
 
+    rows = dict(
+        centers=new_centers, halfw=new_halfw, est=est, err=err, axis=axis,
+        active=active, fresh=fresh,
+    )
+    scalars = dict(fin_integral=fin_integral, fin_error=fin_error, overflowed=overflowed)
+    return rows, scalars
+
+
+def classify_split_compact(
+    state: RegionState,
+    finalize_mask: torch.Tensor,
+    window: Optional[int] = None,
+) -> RegionState:
+    """Apply the classifier verdict, then split every surviving region.
+
+    Under capacity pressure only the top-(free slots) regions by error are
+    split; the rest stay active-but-unsplit.  ``overflowed`` records that
+    pressure was ever hit.  ``finalize_mask`` has shape ``(window,)``
+    (``(capacity,)`` when ``window`` is ``None``).  The single-store case of
+    :func:`split_compact_rows`.
+    """
+    w = _window(state, window)
+    rows = {name: getattr(state, name)[:w][None] for name in ROWS}
+    scalars = {name: getattr(state, name)[None] for name in SCALARS}
+    rows, scalars = split_compact_rows(state.capacity, rows, scalars, finalize_mask[None])
     # In place on the leading window; the tail is all-inactive and
     # fresh-free by the window contract.
-    state.centers[:w] = new_centers
-    state.halfw[:w] = new_halfw
-    state.est[:w] = est
-    state.err[:w] = err
-    state.axis[:w] = axis
-    state.active[:w] = active
-    state.fresh[:w] = fresh
-    return dataclasses.replace(
-        state,
-        fin_integral=fin_integral,
-        fin_error=fin_error,
-        overflowed=overflowed,
-    )
+    for name in ROWS:
+        getattr(state, name)[:w] = rows[name][0]
+    return dataclasses.replace(state, **{name: scalars[name][0] for name in SCALARS})
 
 
 def compact(state: RegionState, window: Optional[int] = None) -> RegionState:

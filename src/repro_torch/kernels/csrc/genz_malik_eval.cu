@@ -35,8 +35,10 @@
 //     float64 at D <= 9; above, ptxas spills up to 1.8 KB per thread, yet
 //     tables in shared memory were no faster on the H100 (PERF.md).
 //   - A broadcast theta (lane stride 0, the main path) is staged in shared
-//     memory once per block; a per-lane theta (the batch service) is read
-//     by each thread only when it builds its tables, never per node.
+//     memory once per block; a per-lane theta is read by each thread only
+//     when it builds its tables, never per node.  The batch service passes
+//     one theta column per slot (lanes_per_col = the slot's window), so one
+//     launch covers every live slot without an (n_theta, lanes) copy.
 //   - __launch_bounds__(512, 1) at every D, so every block size the wrapper
 //     accepts launches; the wrapper's default comes from a block sweep
 //     (PERF.md).
@@ -92,9 +94,11 @@ int dispatch(int device, int d, const gm::Args& a) {
 
 template <typename T>
 int entry(int device, int kernel_id, int d, long long B, int block, const void* c,
-          const void* h, const void* theta, long long th_rs, long long th_ls, void* i7,
-          void* i5, void* i3, void* diffs, const double* consts, void* stream) {
-  const gm::Args a{kernel_id, B,  block, c,     h,      theta, th_rs, th_ls,
+          const void* h, const void* theta, long long th_rs, long long th_ls,
+          long long lanes_per_col, void* i7, void* i5, void* i3, void* diffs,
+          const double* consts, void* stream) {
+  if (lanes_per_col < 0) return cudaErrorInvalidValue;
+  const gm::Args a{kernel_id, B,  block, c,     h,      theta, th_rs, th_ls, lanes_per_col,
                    i7,        i5, i3,    diffs, consts, static_cast<cudaStream_t>(stream)};
   return dispatch<T>(device, d, a);
 }
@@ -102,21 +106,23 @@ int entry(int device, int kernel_id, int d, long long B, int block, const void* 
 }  // namespace
 
 // C entry points, bound with ctypes (kernels/genz_malik_eval.py).  Pointers
-// are device addresses of contiguous tensors; `consts` is a host array of
-// the 16 rule constants; `stream` is the caller's CUDA stream.  The return
-// value is a cudaError_t: 0 once the launch has been queued.
+// are device addresses of contiguous tensors.  Theta row r of lane i is at
+// theta + r * th_rs + i * th_ls, or, with lanes_per_col > 0, at
+// theta + r * th_rs + (i / lanes_per_col) * th_ls.  `consts` is a host
+// array of the 16 rule constants; `stream` is the caller's CUDA stream.
+// The return value is a cudaError_t: 0 once the launch has been queued.
 extern "C" int gm_eval_f64(int device, int kernel_id, int d, long long B, int block,
                            const void* c, const void* h, const void* theta, long long th_rs,
-                           long long th_ls, void* i7, void* i5, void* i3, void* diffs,
-                           const double* consts, void* stream) {
-  return entry<double>(device, kernel_id, d, B, block, c, h, theta, th_rs, th_ls, i7, i5, i3,
-                       diffs, consts, stream);
+                           long long th_ls, long long lanes_per_col, void* i7, void* i5,
+                           void* i3, void* diffs, const double* consts, void* stream) {
+  return entry<double>(device, kernel_id, d, B, block, c, h, theta, th_rs, th_ls, lanes_per_col,
+                       i7, i5, i3, diffs, consts, stream);
 }
 
 extern "C" int gm_eval_f32(int device, int kernel_id, int d, long long B, int block,
                            const void* c, const void* h, const void* theta, long long th_rs,
-                           long long th_ls, void* i7, void* i5, void* i3, void* diffs,
-                           const double* consts, void* stream) {
-  return entry<float>(device, kernel_id, d, B, block, c, h, theta, th_rs, th_ls, i7, i5, i3,
-                      diffs, consts, stream);
+                           long long th_ls, long long lanes_per_col, void* i7, void* i5,
+                           void* i3, void* diffs, const double* consts, void* stream) {
+  return entry<float>(device, kernel_id, d, B, block, c, h, theta, th_rs, th_ls, lanes_per_col,
+                      i7, i5, i3, diffs, consts, stream);
 }

@@ -47,14 +47,17 @@ template <typename T, int D, typename F>
 __global__ void __launch_bounds__(kMaxBlock, 1)
 gm_eval_kernel(const T* __restrict__ c, const T* __restrict__ h,
                const T* __restrict__ theta, long long th_rs, long long th_ls,
-               T* __restrict__ i7, T* __restrict__ i5, T* __restrict__ i3,
-               T* __restrict__ diffs, long long B, Consts<T> k) {
+               long long lanes_per_col, T* __restrict__ i7, T* __restrict__ i5,
+               T* __restrict__ i3, T* __restrict__ diffs, long long B, Consts<T> k) {
   constexpr int kThetaRows = F::kThetaPerAxis * D;
   constexpr int L = D < kLowAxes ? D : kLowAxes;
   constexpr int H = D - L;
 
   // A broadcast theta (lane stride 0, the main path) is staged once per
-  // block; a per-lane theta is read from global memory by term().
+  // block; a per-lane theta is read from global memory by term().  With
+  // lanes_per_col > 0, lane i reads column i / lanes_per_col (the batch
+  // service: one column per slot, each slot's window a run of lanes); a
+  // block may straddle two slots, so the column is the lane's own.
   __shared__ T stage[kThetaRows > 0 ? kThetaRows : 1];
   const bool broadcast = kThetaRows > 0 && th_ls == 0;
   if (broadcast) {
@@ -64,8 +67,9 @@ gm_eval_kernel(const T* __restrict__ c, const T* __restrict__ h,
 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
+  const long long col = lanes_per_col > 0 ? i / lanes_per_col : i;
   const Theta<T> th{broadcast ? stage : nullptr,
-                    kThetaRows > 0 ? theta + i * th_ls : nullptr, th_rs};
+                    kThetaRows > 0 ? theta + col * th_ls : nullptr, th_rs};
   const T* cl = c + i;  // axis q of this lane's centre at cl[q * B]
   const T* hl = h + i;
 
@@ -226,8 +230,8 @@ cudaError_t launch_integrand(const Args& a) {
   const long long grid = (a.B + a.block - 1) / a.block;
   gm_eval_kernel<T, D, F><<<static_cast<unsigned>(grid), a.block, 0, a.stream>>>(
       static_cast<const T*>(a.c), static_cast<const T*>(a.h), static_cast<const T*>(a.theta),
-      a.th_rs, a.th_ls, static_cast<T*>(a.i7), static_cast<T*>(a.i5), static_cast<T*>(a.i3),
-      static_cast<T*>(a.diffs), a.B, make_consts<T>(a.consts));
+      a.th_rs, a.th_ls, a.lanes_per_col, static_cast<T*>(a.i7), static_cast<T*>(a.i5),
+      static_cast<T*>(a.i3), static_cast<T*>(a.diffs), a.B, make_consts<T>(a.consts));
   return cudaGetLastError();
 }
 

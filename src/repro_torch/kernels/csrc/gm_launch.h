@@ -21,6 +21,7 @@ struct Args {
   const void* h;
   const void* theta;  // may be null
   long long th_rs, th_ls;
+  long long lanes_per_col;  // 0: lane i reads theta + i * th_ls; else column i / lanes_per_col
   void* i7;
   void* i5;
   void* i3;

@@ -61,7 +61,8 @@ def _entry(dtype: torch.dtype):
         ctypes.c_void_p,  # halfw
         ctypes.c_void_p,  # theta (may be NULL)
         ctypes.c_longlong,  # theta row stride
-        ctypes.c_longlong,  # theta lane stride
+        ctypes.c_longlong,  # theta lane (or column) stride
+        ctypes.c_longlong,  # lanes per theta column, 0 = one column per lane
         ctypes.c_void_p,  # i7
         ctypes.c_void_p,  # i5
         ctypes.c_void_p,  # i3
@@ -97,11 +98,16 @@ def genz_malik_eval_soa(
     halfw: torch.Tensor,  # (d, B)
     theta_rows: Optional[torch.Tensor] = None,  # (n_theta, B), any strides
     block_regions: int = 0,
+    lanes_per_col: int = 0,
 ):
     """Launch the fused GM kernel.  Returns (i7, i5, i3, diffs (d, B)).
 
     ``theta_rows`` may be a broadcast view (lane stride 0): one problem's
-    theta reaches every lane without materialising ``(n_theta, B)``.
+    theta reaches every lane without materialising ``(n_theta, B)``.  With
+    ``lanes_per_col`` > 0 it is ``(n_theta, B // lanes_per_col)`` columns
+    instead, lane i reading column ``i // lanes_per_col``: the batch
+    service's one launch over the windows of every live slot, each slot with
+    its own theta.
     """
     if centers.device.type != "cuda":
         raise ValueError(f"genz_malik_eval_soa runs on CUDA tensors, got {centers.device}")
@@ -122,13 +128,18 @@ def genz_malik_eval_soa(
     if kernel_id not in range(10):
         raise ValueError(f"unknown kernel id {kernel_id}")
     need = THETA_ROWS_PER_AXIS.get(kernel_id, 0) * d
+    if lanes_per_col < 0 or (lanes_per_col and b % lanes_per_col):
+        raise ValueError(
+            f"lanes_per_col must be 0 or divide B={b}, got {lanes_per_col}"
+        )
+    cols = b // lanes_per_col if lanes_per_col else b
     th_ptr, th_rs, th_ls = None, 0, 0
     if need:
         if theta_rows is None:
             raise ValueError(f"kernel id {kernel_id} needs {need} theta rows")
-        if tuple(theta_rows.shape) != (need, b):
+        if tuple(theta_rows.shape) != (need, cols):
             raise ValueError(
-                f"theta_rows must be ({need}, {b}), got {tuple(theta_rows.shape)}"
+                f"theta_rows must be ({need}, {cols}), got {tuple(theta_rows.shape)}"
             )
         if theta_rows.dtype != centers.dtype or theta_rows.device != centers.device:
             raise ValueError("theta_rows must share the dtype and device of centers")
@@ -153,7 +164,7 @@ def genz_malik_eval_soa(
         rc = _entry(centers.dtype)(
             centers.device.index,
             kernel_id, d, b, block,
-            centers.data_ptr(), halfw.data_ptr(), th_ptr, th_rs, th_ls,
+            centers.data_ptr(), halfw.data_ptr(), th_ptr, th_rs, th_ls, lanes_per_col,
             i7.data_ptr(), i5.data_ptr(), i3.data_ptr(), diffs.data_ptr(),
             ctypes.cast(consts, ctypes.c_void_p), stream,
         )

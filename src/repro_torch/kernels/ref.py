@@ -37,12 +37,18 @@ def genz_malik_eval_soa_ref(
     centers: torch.Tensor,  # (d, B)
     halfw: torch.Tensor,  # (d, B)
     theta_rows: Optional[torch.Tensor] = None,  # (n_theta, B)
+    lanes_per_col: int = 0,
 ):
     """Returns (i7, i5, i3, diffs (d, B)), as the CUDA kernel does.
 
     Without ``theta_rows``, ``f`` maps ``(d, N)`` coordinates to ``(N,)``;
     with them, ``f(x, theta_rows)`` is called with the ``(n_theta, B)`` rows.
+    With ``lanes_per_col`` > 0, ``theta_rows`` holds one column per run of
+    ``lanes_per_col`` lanes, as the kernel takes it; here each column is
+    repeated over its lanes.
     """
+    if lanes_per_col:
+        theta_rows = theta_rows.repeat_interleave(lanes_per_col, dim=1)
     fx = f if theta_rows is None else (lambda x: f(x, theta_rows))
     i7, i5, i3, diffs = gm_eval_reference(fx, centers.T, halfw.T)
     return i7, i5, i3, diffs.T

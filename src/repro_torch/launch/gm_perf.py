@@ -3,7 +3,7 @@
     python src/repro_torch/launch/gm_perf.py time [--cases f4:5,genz_gaussian:8]
         [--batch 1048576] [--blocks 64,128,256,512] [--dtype float64] [--reps 50]
     python src/repro_torch/launch/gm_perf.py ptxas [--sass Li5E2F4]
-    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed]
+    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed,service]
 
 ``time`` times the kernel wrapper (``kernels.genz_malik_eval.genz_malik_eval_soa``)
 with CUDA events on SoA inputs, for each case (integrand:d), batch size and
@@ -26,7 +26,9 @@ advance: sort, gathers, tree sums, classify) and the time the device sat
 idle (host gaps).  ``--drivers`` picks the drivers, each on every case:
 ``integrate`` (the default), ``device`` (``integrate_device``) and
 ``distributed`` (``integrate_distributed`` on four ranks over the visible
-GPUs, capacity per rank as the case's).
+GPUs, capacity per rank as the case's) and ``service`` (the batch service's
+one-rank fleet of ``chip_smoke.py`` phase 9, :data:`SERVICE`, in place of
+the three cases).
 
 Each result is one JSON line, with the card's name and power limit.
 Needs a CUDA device; there is no CPU fallback.  ``chip_smoke.py`` shares the
@@ -37,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import itertools
 import json
 import os
 import re
@@ -57,6 +58,13 @@ MAIN_CASES = [
     ("f6", 5, 1e-4, 1 << 22),
 ]
 TIMED = [("f4", 5), ("genz_gaussian", 8)]
+# The batch service's fleet (chip_smoke.py phase 9): a parameter sweep of
+# 192 Gaussians at d = 5 through 64 slots of 2^19 regions, tolerances
+# striped by request index so that some ranks drain and migration fires.
+SERVICE = dict(d=5, integrand="genz_gaussian", capacity=1 << 19, batch_slots=64,
+               admit_every=1, sync_every=4, eval_window_min=256)
+SERVICE_REQUESTS = 192
+SERVICE_TOLS = (1e-3, 1e-7)  # rel_tol of even and odd request indices
 TIMED_B = 1 << 20
 # Device events by kind, first match of a word in the event's name: the GM
 # kernel, then the advance's sorts, gathers, copies, reductions (the tree
@@ -102,6 +110,32 @@ def soa(entry, centers, halfw, theta):
     rows = torch.cat([torch.as_tensor(theta[k], dtype=ct.dtype, device=ct.device)
                       for k in entry.theta_fields])
     return ct, ht, rows[:, None].expand(-1, ct.shape[1])
+
+
+def service_requests():
+    """The fleet's requests: thetas drawn in order from one generator
+    seeded 0, rel_tol striped by index."""
+    from repro_torch.core.integrands import PARAM_REGISTRY
+    from repro_torch.service import QuadRequest
+
+    family = PARAM_REGISTRY[SERVICE["integrand"]]
+    rng = np.random.default_rng(0)
+    return [
+        QuadRequest(req_id=i, theta=family.sample_theta(SERVICE["d"], rng),
+                    rel_tol=SERVICE_TOLS[i % 2])
+        for i in range(SERVICE_REQUESTS)
+    ]
+
+
+def serve_fleet(devices):
+    """Serve the fleet on ``devices`` (one per rank); returns the results
+    by req_id and the scheduler."""
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.service import BatchScheduler
+
+    sched = BatchScheduler(QuadratureConfig(**SERVICE), devices=devices)
+    results = sorted(sched.serve(service_requests()), key=lambda r: r.req_id)
+    return results, sched
 
 
 def time_ms(fn, reps):
@@ -179,10 +213,22 @@ def cmd_profile(args):
         "device": lambda cfg: adaptive.integrate_device(cfg, device="cuda"),
         "distributed": lambda cfg: integrate_distributed(cfg, devices=cuda_devices(4)),
     }
+    class Fleet:  # the service's run, read like a driver's result
+        def __init__(self, devices):
+            results, sched = serve_fleet(devices)
+            self.iterations = sched.last_stats["iterations"]
+            self.n_evals = sum(r.n_evals for r in results)
+            self.host_syncs = self.iterations  # one stacked read per iteration
+
+    drivers["service"] = lambda cfg: Fleet(cuda_devices(1))
+    service_case = [("service:" + SERVICE["integrand"], SERVICE["d"], None, SERVICE["capacity"])]
+    runs = [(driver, case) for driver in args.drivers
+            for case in (service_case if driver == "service" else MAIN_CASES)]
     smi = card()
-    for driver, (name, d, rel_tol, capacity) in itertools.product(args.drivers, MAIN_CASES):
+    for driver, (name, d, rel_tol, capacity) in runs:
         run = drivers[driver]
-        cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
+        cfg = None if driver == "service" else QuadratureConfig(
+            d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
         run(cfg)  # build, allocate, warm up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -229,7 +275,7 @@ def _ints(s):
 
 def _drivers(s):
     names = s.split(",")
-    unknown = set(names) - {"integrate", "device", "distributed"}
+    unknown = set(names) - {"integrate", "device", "distributed", "service"}
     if unknown:
         raise argparse.ArgumentTypeError(f"unknown drivers {sorted(unknown)}")
     return names
@@ -255,7 +301,7 @@ def main(argv=None):
     p = sub.add_parser("profile", help="torch.profiler breakdown of the main path")
     p.add_argument("--trace-dir", default=None, help="write Chrome traces here")
     p.add_argument("--drivers", type=_drivers, default=["integrate"],
-                   help="comma-separated: integrate, device, distributed")
+                   help="comma-separated: integrate, device, distributed, service")
     args = ap.parse_args(argv)
     if args.cmd != "ptxas" and not torch.cuda.is_available():
         raise SystemExit("gm_perf: no CUDA device; this tool measures the card only")
