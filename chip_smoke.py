@@ -48,7 +48,24 @@ Phases, each of which passes or raises (a failure exits nonzero):
    two runs give the same results bit for bit; the first four requests
    equal integrate()'s on their theta and tolerance bit for bit; one GM
    launch per rank per iteration with a live slot; migrations on four
-   ranks.
+   ranks;
+10. the VEGAS backend (repro_torch.mc), gm_perf.py's VEGAS_CASES at a
+   high-dimension user's sizes (genz_gaussian d=15 and genz_product_peak
+   d=10 at 2^22 samples, f6 d=9 at 2^20; float64, 8 shards).  First the
+   sums kernel against its plain version (bit-equal to the plain version's
+   sample-order sums on the CPU; within 1e-10 of the largest sum against
+   its index_add_ on the card).  (a) integrate_vegas, each case twice:
+   the same bits, converged, within 5 reported errors of the exact value,
+   one sums launch per iteration; (b) integrate_vegas_distributed on 2 and
+   4 ranks (cuda:(r mod count)): bit-equal to (a), one launch per rank
+   per iteration;
+11. (a) the VEGAS pool: 64 genz_gaussian requests at d=10 served with
+   backend "auto" (16 slots, 2^18 samples, rel_tol 1e-3): every request
+   converged or max_iters, within 5 errors of its exact value, n_evals =
+   samples x iterations; (b) phase 9's one-rank fleet through
+   GracefulScheduler: the requests phase 9 finished are equal to phase
+   9's results, the ones it evicted as capacity come back from the VEGAS
+   pool with attempts 2, and last_stats counts them as reroutes.
 
 It ends with one JSON line per kernel summary and, last, the device line.
 """
@@ -69,7 +86,8 @@ import torch  # noqa: E402
 # the three main-path cases, the (integrand, d) timed at B = TIMED_B, and
 # the helpers that gm_perf.py's measurements share with this script
 from repro_torch.launch.gm_perf import (  # noqa: E402
-    MAIN_CASES, TIMED, TIMED_B, card, inputs, soa, time_ms,
+    MAIN_CASES, TIMED, TIMED_B, VEGAS_CASES, VEGAS_POOL, card, inputs, pool_thetas,
+    serve_pool, soa, time_ms, vegas_case,
 )
 
 # H100 SXM peaks (NVIDIA data sheet): FP64 outside the tensor cores (an FMA
@@ -676,7 +694,247 @@ def phase_service():
         assert (res.integral, res.error, res.status, res.iterations, res.n_evals) == (
             single.integral, single.error, single.status, single.iterations,
             single.n_evals), (res, single)
-    return total
+    return total, runs[1]
+
+
+# --- the VEGAS backend (phases 10 and 11) -------------------------------------
+
+# vegas_sums against its plain version: at most this share of the largest
+# sum apart from the plain version's index_add_ on the card (atomics add in
+# another order; ~450 and ~840 units of rounding of float64 and float32);
+# bit-equal to the plain version's sample-order sums on the CPU
+SUMS_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def _sums_inputs(rng, d, n_samples, n_strat, problems=1, dtype=torch.float64):
+    """Inputs of one vegas_sums call: w (P, N), y (d, P, N), cum (P, M),
+    with per-cube counts from skewed weights (as adapted counts are)."""
+    from repro_torch.mc import stratified
+
+    m = n_strat**d
+    weights = torch.as_tensor(rng.uniform(size=(problems, m)) ** 3)
+    counts = stratified.allocate_counts(weights, n_samples, 4)
+    cum = torch.cumsum(counts, dim=-1).cuda()
+    w = torch.as_tensor(rng.normal(size=(problems, n_samples)) * np.exp(rng.normal(size=(problems, n_samples))),
+                        dtype=dtype, device="cuda")
+    y = torch.rand((d, problems, n_samples), dtype=dtype, device="cuda")
+    return w, y, cum
+
+
+def _sums_check(w, y, cum, nb, shard0, ns, what):
+    """The kernel against the plain version: bit-equal on a CPU copy, and
+    within SUMS_RTOL of the largest sum on the card; returns the largest
+    absolute difference on the card."""
+    from repro_torch.kernels import vegas_sums as vs
+
+    got = vs.vegas_sums(w, y, cum, nb, shard0, ns)
+    ref = vs.vegas_sums_ref(w, y, cum, nb, shard0, ns)
+    cpu = vs.vegas_sums_ref(w.cpu(), y.cpu(), cum.cpu(), nb, shard0, ns)
+    worst = 0.0
+    for g, r, c, label in zip(got, ref, cpu, ("s1", "s2", "g")):
+        assert torch.equal(g.cpu(), c), f"{what} {label}: kernel and CPU plain version differ"
+        err = float((g - r).abs().max())
+        assert err <= SUMS_RTOL[w.dtype] * float(r.abs().max()), f"{what} {label}: {err}"
+        worst = max(worst, err)
+    return worst
+
+
+def phase_vegas_kernel_vs_plain():
+    """The sums kernel at the shapes of phases 10 and 11, a rank's slice of
+    shards, and float32."""
+    from repro_torch.kernels import vegas_sums as vs
+
+    rng = np.random.default_rng(2)
+    before = vs.launch_count()
+    worst, n = 0.0, 0
+    t0 = time.perf_counter()
+    for d, samples, n_strat, problems in [(15, 1 << 22, 2, 1), (10, 1 << 22, 3, 1),
+                                          (9, 1 << 20, 3, 1), (10, 1 << 18, 2, 16), (3, 4096, 4, 3)]:
+        w, y, cum = _sums_inputs(rng, d, samples, n_strat, problems)
+        ns = samples // 8
+        worst = max(worst, _sums_check(w, y, cum, 64, 0, ns, f"d={d} N={samples} P={problems}"))
+        # the slice of shards 4..5 that rank 2 of 4 reduces
+        sl = slice(4 * ns, 6 * ns)
+        worst = max(worst, _sums_check(w[:, sl].contiguous(), y[:, :, sl].contiguous(), cum, 64, 4,
+                                       ns, f"d={d} N={samples} shards 4-5"))
+        n += 2
+    w, y, cum = _sums_inputs(rng, 5, 8192, 3, 2, torch.float32)
+    worst = max(worst, _sums_check(w, y, cum, 16, 0, 1024, "float32"))
+    n += 1
+    torch.cuda.synchronize()
+    assert vs.launch_count() - before == n, (vs.launch_count() - before, n)
+    log(f"vegas sums vs plain: {n} checks passed in {time.perf_counter() - t0:.1f} s; "
+        f"bit-equal to the plain version on the CPU, largest difference from its index_add_ "
+        f"on the card {worst:.3e}")
+    return worst
+
+
+def phase_vegas():
+    """Phase 10: integrate_vegas twice per case, then on 2 and 4 ranks."""
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import vegas_sums as vs
+    from repro_torch.mc import integrate_vegas, integrate_vegas_distributed
+
+    total = 0
+    rows = []
+    for case in VEGAS_CASES:
+        cfg, exact = vegas_case(*case)
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            vs.reset_launch_count()
+            res, wall = _timed(lambda: integrate_vegas(cfg, device="cuda"))
+            runs.append((res, wall, vs.launch_count(), torch.cuda.max_memory_allocated()))
+        (res, wall, launches, peak), (again, wall2, _, _) = runs
+        sigmas = abs(res.integral - exact) / res.error
+        row = dict(
+            phase="vegas", case=case[0], d=cfg.d, mc_samples=cfg.mc_samples, rel_tol=cfg.rel_tol,
+            status=res.status, iterations=res.iterations, n_evals=res.n_evals,
+            chi2_dof=res.chi2_dof, wall_s=[wall, wall2], samples_per_s=res.n_evals / wall2,
+            max_memory_allocated=peak, launches=launches,
+            host_syncs=res.host_syncs, integral=res.integral, error=res.error, exact=exact,
+            true_rel_err=abs(res.integral - exact) / abs(exact), errors_off=sigmas,
+        )
+        log(json.dumps(row))
+        assert (again.integral, again.error, again.iterations, again.n_evals, again.chi2_dof) == (
+            res.integral, res.error, res.iterations, res.n_evals, res.chi2_dof), (again, res)
+        assert res.status == "converged", row
+        assert sigmas <= 5.0, row
+        assert launches == res.iterations > 0, row
+        total += launches
+        for n in (2, 4):
+            devices = cuda_devices(n)
+            vs.reset_launch_count()
+            dist, dwall = _timed(lambda: integrate_vegas_distributed(cfg, devices=devices))
+            dl = vs.launch_count()
+            log(json.dumps(dict(phase="vegas_ranks", case=case[0], d=cfg.d, ranks=n,
+                                devices=[str(x) for x in devices], wall_s=dwall,
+                                iterations=dist.iterations, launches=dl,
+                                integral=dist.integral, error=dist.error)))
+            assert (dist.integral, dist.error, dist.n_evals, dist.iterations, dist.status) == (
+                res.integral, res.error, res.n_evals, res.iterations, res.status), (n, dist, res)
+            assert dl == n * dist.iterations, (dl, dist.iterations)
+            total += dl
+        rows.append(row)
+    return total, rows
+
+
+def phase_vegas_pool():
+    """Phase 11a: the VEGAS pool's fleet, routed by backend "auto"."""
+    from repro_torch.core import integrands
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import vegas_sums as vs
+
+    family = integrands.PARAM_REGISTRY[VEGAS_POOL["integrand"]]
+    d = VEGAS_POOL["d"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vs.reset_launch_count()
+    (results, sched, thetas), wall = _timed(lambda: serve_pool(cuda_devices(1)))
+    launches = vs.launch_count()
+    stats = sched.last_stats
+    n_evals = sum(r.n_evals for r in results)
+    row = dict(
+        phase="vegas_pool", backend=sched.engine.backend, d=d, slots=VEGAS_POOL["batch_slots"],
+        mc_samples=VEGAS_POOL["mc_samples"], rel_tol=VEGAS_POOL["rel_tol"],
+        requests=len(results), wall_s=wall, requests_per_s=len(results) / wall,
+        n_evals=n_evals, evals_per_s=n_evals / wall, iterations=stats["iterations"],
+        dispatches=stats["dispatches"], launches=launches,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        statuses={s: sum(r.status == s for r in results) for s in {r.status for r in results}},
+        largest_errors_off=max(abs(r.integral - family.exact(d, thetas[r.req_id])) / r.error
+                               for r in results),
+    )
+    log(json.dumps(row))
+    assert sched.engine.backend == "vegas" and len(results) == len(thetas), row
+    for r in results:
+        exact = family.exact(d, thetas[r.req_id])
+        assert r.status in ("converged", "max_iters"), r
+        assert abs(r.integral - exact) < 5 * r.error, (r, exact)
+        assert r.n_evals == VEGAS_POOL["mc_samples"] * r.iterations, r
+    # one sums launch per fleet iteration: some slot is live in every one
+    assert launches == stats["iterations"] > 0, row
+    return launches
+
+
+def phase_graceful(phase9):
+    """Phase 11b: phase 9's one-rank fleet served with graceful=True."""
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels import vegas_sums as vs
+    from repro_torch.launch.gm_perf import SERVICE, service_requests
+    from repro_torch.service import serve
+
+    gm_kernel.reset_launch_count()
+    vs.reset_launch_count()
+    results, wall = _timed(lambda: sorted(
+        serve(QuadratureConfig(**SERVICE), service_requests(), devices=cuda_devices(1),
+              graceful=True), key=lambda r: r.req_id))
+    gm, mc = gm_kernel.launch_count(), vs.launch_count()
+    evicted = [p.req_id for p in phase9 if p.status == "capacity"]
+    rerouted = [r for r in results if r.attempts > 1]
+    row = dict(phase="graceful", requests=len(results), wall_s=wall, gm_launches=gm,
+               vegas_launches=mc, evicted_in_phase9=evicted,
+               rerouted=[dict(req_id=r.req_id, status=r.status, backend=r.backend,
+                              attempts=r.attempts, retried_from=r.retried_from,
+                              iterations=r.iterations, integral=r.integral, error=r.error)
+                         for r in rerouted])
+    log(json.dumps(row))
+    assert len(results) == len(phase9), row
+    for r, p in zip(results, phase9):
+        if p.status == "capacity":
+            assert (r.backend, r.attempts, r.retried_from) == ("vegas", 2, "capacity"), r
+        else:
+            assert r == p, (r, p)
+    assert [r.req_id for r in rerouted] == evicted, row
+    assert gm > 0 and (mc > 0) == bool(evicted), row
+    return gm, mc, len(evicted)
+
+
+def phase_vegas_timing():
+    """The sums kernel at phase 10's first case (d=15, 2^22 samples, 8
+    shards, 2^15 cubes, 64 bins), its plain version and index_add_ alone."""
+    from repro_torch.kernels import vegas_sums as vs
+
+    d, samples, n_strat, nb = VEGAS_CASES[0][1], VEGAS_CASES[0][2], 2, 64
+    ns = samples // 8
+    w, y, cum = _sums_inputs(np.random.default_rng(4), d, samples, n_strat)
+    m = cum.shape[1]
+    before = vs.launch_count()
+    err = _sums_check(w, y, cum, nb, 0, ns, "timed shape")
+    ms = time_ms(lambda: vs.vegas_sums(w, y, cum, nb, 0, ns), 20)
+    plain_ms = time_ms(lambda: vs.vegas_sums_ref(w, y, cum, nb, 0, ns), 5)
+    # index_add_ alone, on output ids computed beforehand: the library's part
+    index = torch.arange(samples, device="cuda")
+    row_id = index // ns
+    ids = row_id * m + torch.searchsorted(cum[0], index, right=True)
+    b = torch.clamp((y[:, 0] * nb).long(), 0, nb - 1)
+    bin_ids = ((row_id[None] * d + torch.arange(d, device="cuda")[:, None]) * nb + b).reshape(-1)
+    w2 = w[0] * w[0]
+    w2d = w2.expand(d, samples).reshape(-1)
+
+    def library():
+        torch.zeros(8 * m, dtype=w.dtype, device="cuda").index_add_(0, ids, w[0])
+        torch.zeros(8 * m, dtype=w.dtype, device="cuda").index_add_(0, ids, w2)
+        torch.zeros(8 * d * nb, dtype=w.dtype, device="cuda").index_add_(0, bin_ids, w2d)
+
+    library_ms = time_ms(library, 5)
+    assert vs.launch_count() - before == 1 + 3 + 20
+    # least time: read w, y and cum once, write s1, s2 and g once; FP64
+    # operations: a sum and a square-and-sum per sample, and per (axis,
+    # sample) the y * nb and the matching bin's square-and-sum
+    bytes_moved = 8 * (samples + d * samples + m + 2 * 8 * m + 8 * d * nb)
+    ops = 3 * samples + 3 * d * samples
+    bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
+    ops_ms = ops / PEAK_FP64_FLOPS * 1e3
+    row = dict(d=d, samples=samples, shards=8, cubes=m, bins=nb, dtype="float64", ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=bytes_moved,
+               ops=ops, max_abs_err=err)
+    log("timing: " + json.dumps(row))
+    return row
 
 
 def main():
@@ -688,7 +946,15 @@ def main():
     launches += phase_distributed(main_rows)
     phase_gauss_kronrod()
     timings = phase_timing()
-    launches += phase_service()
+    service_launches, phase9 = phase_service()
+    launches += service_launches
+    phase_vegas_kernel_vs_plain()
+    vegas_launches, _ = phase_vegas()
+    vegas_launches += phase_vegas_pool()
+    gm_graceful, mc_graceful, _ = phase_graceful(phase9)
+    launches += gm_graceful
+    vegas_launches += mc_graceful
+    vt = phase_vegas_timing()
     t = timings[0]
     kernel = dict(
         name="genz_malik_eval", route="cuda",
@@ -699,8 +965,15 @@ def main():
         instr_bound_ms=t["instr_bound_ms"], library_ms=None,
         at=f"{t['integrand']} d={t['d']} B={t['B']} float64",
     )
+    sums = dict(
+        name="vegas_sums", route="cuda", source="src/repro_torch/kernels/csrc/vegas_sums.cu",
+        replaces="src/repro/mc/engine.py:196 (jax.ops.segment_sum; no TPU kernel)",
+        launches=vegas_launches, max_abs_err=vt["max_abs_err"], ms=vt["ms"],
+        plain_ms=vt["plain_ms"], bound_ms=vt["bound_ms"], bound_by=vt["bound_by"],
+        library_ms=vt["library_ms"], at=f"d={vt['d']} N={vt['samples']} float64",
+    )
     log(f"card: {smi}")
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [kernel, sums]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

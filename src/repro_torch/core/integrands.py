@@ -210,12 +210,16 @@ def _col(theta_leaf, x: torch.Tensor) -> torch.Tensor:
     """Theta leaf (d,) -> column (d, 1) in the coordinate dtype and device.
 
     Leaves that already carry a lane axis, ``(d, 1)`` or ``(d, N)``, pass
-    through (the plain kernel version feeds theta as ``(d, N)`` rows).  Any
-    other length raises: a theta of the wrong length would otherwise
-    broadcast in the integrand while ``exact`` truncates to d.
+    through (the plain kernel version feeds theta as ``(d, N)`` rows), and
+    so do ``(d, P, 1)`` leaves against ``(d, P, N)`` coordinates (the VEGAS
+    pool's P problems, one theta each).  Any other length raises: a theta of
+    the wrong length would otherwise broadcast in the integrand while
+    ``exact`` truncates to d.
     """
     arr = torch.as_tensor(theta_leaf, dtype=x.dtype, device=x.device)
     if arr.ndim == 2 and arr.shape[0] == x.shape[0] and arr.shape[1] in (1, x.shape[1]):
+        return arr
+    if arr.ndim == 3 == x.ndim and arr.shape[:2] == x.shape[:2] and arr.shape[2] == 1:
         return arr
     if tuple(arr.shape) != (x.shape[0],):
         raise ValueError(

@@ -44,6 +44,15 @@ def rank_device(device) -> torch.device:
     return dev
 
 
+def to_device(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` without making the host wait: staged
+    in pinned memory and copied asynchronously on a CUDA device."""
+    t = torch.as_tensor(np.asarray(values), dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def cuda_devices(n_ranks: int) -> list[torch.device]:
     """``n_ranks`` ranks over the visible GPUs: rank r on cuda:(r mod count).
 

@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 )
 
 # The GM kernel: the dispatcher, and one unit per (working type, dimension)
-# with that pair's ten integrand kernels.
+# with that pair's ten integrand kernels.  The VEGAS sample reductions: one
+# unit.
 LIBRARIES: dict[str, tuple[tuple[str, tuple[str, ...]], ...]] = {
     "genz_malik_eval": (
         ("genz_malik_eval.cu", ()),
@@ -49,6 +50,7 @@ LIBRARIES: dict[str, tuple[tuple[str, tuple[str, ...]], ...]] = {
             for d in range(1, 17)
         ),
     ),
+    "vegas_sums": (("vegas_sums.cu", ()),),
 }
 
 

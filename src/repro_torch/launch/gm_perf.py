@@ -3,7 +3,7 @@
     python src/repro_torch/launch/gm_perf.py time [--cases f4:5,genz_gaussian:8]
         [--batch 1048576] [--blocks 64,128,256,512] [--dtype float64] [--reps 50]
     python src/repro_torch/launch/gm_perf.py ptxas [--sass Li5E2F4]
-    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed,service]
+    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed,service,vegas]
 
 ``time`` times the kernel wrapper (``kernels.genz_malik_eval.genz_malik_eval_soa``)
 with CUDA events on SoA inputs, for each case (integrand:d), batch size and
@@ -26,9 +26,11 @@ advance: sort, gathers, tree sums, classify) and the time the device sat
 idle (host gaps).  ``--drivers`` picks the drivers, each on every case:
 ``integrate`` (the default), ``device`` (``integrate_device``) and
 ``distributed`` (``integrate_distributed`` on four ranks over the visible
-GPUs, capacity per rank as the case's) and ``service`` (the batch service's
+GPUs, capacity per rank as the case's), ``service`` (the batch service's
 one-rank fleet of ``chip_smoke.py`` phase 9, :data:`SERVICE`, in place of
-the three cases).
+the three cases) and ``vegas`` (``integrate_vegas`` on the first of
+:data:`VEGAS_CASES`, with its device time split by stage: sample + map,
+integrand, reductions, refine, from the engine's named ranges).
 
 Each result is one JSON line, with the card's name and power limit.
 Needs a CUDA device; there is no CPU fallback.  ``chip_smoke.py`` shares the
@@ -66,11 +68,27 @@ SERVICE = dict(d=5, integrand="genz_gaussian", capacity=1 << 19, batch_slots=64,
 SERVICE_REQUESTS = 192
 SERVICE_TOLS = (1e-3, 1e-7)  # rel_tol of even and odd request indices
 TIMED_B = 1 << 20
+# VEGAS cases of chip_smoke.py phase 10, at a high-dimension user's sizes:
+# (integrand, d, mc_samples, rel_tol); a family's theta is sample_theta's
+# draw from default_rng(0).  mc_shards 8, mc_max_iters 100, float64.
+VEGAS_CASES = [
+    ("genz_gaussian", 15, 1 << 22, 1e-4),
+    ("genz_product_peak", 10, 1 << 22, 1e-4),
+    ("f6", 9, 1 << 20, 1e-3),  # discontinuous: the chi^2 guard
+]
+# The VEGAS pool's fleet (phase 11a): 64 Gaussians at d = 10, thetas from
+# sample_theta with seed 0, served with backend "auto" through 16 slots.
+VEGAS_POOL = dict(d=10, integrand="genz_gaussian", backend="auto", batch_slots=16,
+                  mc_samples=1 << 18, rel_tol=1e-3, mc_max_iters=60, sync_every=4)
+VEGAS_POOL_REQUESTS = 64
+# the engine's named ranges (mc/engine.py), in the order of an iteration
+VEGAS_STAGES = ("vegas.sample_map", "vegas.integrand", "vegas.reduce", "vegas.refine")
 # Device events by kind, first match of a word in the event's name: the GM
 # kernel, then the advance's sorts, gathers, copies, reductions (the tree
 # sums and the classifier's counts) and, left over, elementwise kernels.
 KINDS = [
     ("gm_kernel", ("gm_eval_kernel",)),
+    ("vegas_sums", ("vegas_sums_kernel",)),
     ("sort", ("Sort", "sort")),
     ("gather_index", ("gather", "index")),
     ("copy_fill", ("Memcpy", "Memset", "copy", "Fill")),
@@ -136,6 +154,43 @@ def serve_fleet(devices):
     sched = BatchScheduler(QuadratureConfig(**SERVICE), devices=devices)
     results = sorted(sched.serve(service_requests()), key=lambda r: r.req_id)
     return results, sched
+
+
+def vegas_case(name, d, samples, rel_tol):
+    """``(cfg, exact)`` of one of :data:`VEGAS_CASES`."""
+    from repro_torch.core import integrands
+    from repro_torch.core.config import QuadratureConfig
+
+    if name in integrands.PARAM_REGISTRY:
+        family = integrands.PARAM_REGISTRY[name]
+        theta = family.sample_theta(d, np.random.default_rng(0))
+        spec, exact = integrands.to_spec(family, theta), family.exact(d, theta)
+    else:
+        spec, exact = name, integrands.REGISTRY[name].exact(d)
+    cfg = QuadratureConfig(d=d, integrand=spec, rel_tol=rel_tol, backend="vegas",
+                           mc_samples=samples, mc_max_iters=100)
+    return cfg, exact
+
+
+def pool_thetas():
+    from repro_torch.core.integrands import PARAM_REGISTRY
+
+    family = PARAM_REGISTRY[VEGAS_POOL["integrand"]]
+    rng = np.random.default_rng(0)
+    return [family.sample_theta(VEGAS_POOL["d"], rng) for _ in range(VEGAS_POOL_REQUESTS)]
+
+
+def serve_pool(devices):
+    """Serve the VEGAS pool's fleet; returns the results by req_id, the
+    scheduler and the thetas."""
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.service import BatchScheduler, QuadRequest
+
+    thetas = pool_thetas()
+    sched = BatchScheduler(QuadratureConfig(**VEGAS_POOL), devices=devices)
+    results = sorted(sched.serve(QuadRequest(req_id=i, theta=t) for i, t in enumerate(thetas)),
+                     key=lambda r: r.req_id)
+    return results, sched, thetas
 
 
 def time_ms(fn, reps):
@@ -207,6 +262,7 @@ def cmd_profile(args):
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.core.distributed import integrate_distributed
     from repro_torch.core.ranks import cuda_devices
+    from repro_torch.mc import integrate_vegas
 
     drivers = {
         "integrate": lambda cfg: adaptive.integrate(cfg, device="cuda"),
@@ -221,16 +277,24 @@ def cmd_profile(args):
             self.host_syncs = self.iterations  # one stacked read per iteration
 
     drivers["service"] = lambda cfg: Fleet(cuda_devices(1))
-    service_case = [("service:" + SERVICE["integrand"], SERVICE["d"], None, SERVICE["capacity"])]
+    drivers["vegas"] = lambda cfg: integrate_vegas(cfg, device="cuda")
+    vegas_cfg = vegas_case(*VEGAS_CASES[0])[0]
+    own_case = {
+        "service": [("service:" + SERVICE["integrand"], SERVICE["d"], None, SERVICE["capacity"])],
+        "vegas": [(VEGAS_CASES[0][0], VEGAS_CASES[0][1], None, None)],
+    }
     runs = [(driver, case) for driver in args.drivers
-            for case in (service_case if driver == "service" else MAIN_CASES)]
+            for case in own_case.get(driver, MAIN_CASES)]
     smi = card()
     for driver, (name, d, rel_tol, capacity) in runs:
         run = drivers[driver]
-        cfg = None if driver == "service" else QuadratureConfig(
-            d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
+        if driver in own_case:
+            cfg = vegas_cfg if driver == "vegas" else None
+        else:
+            cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
         run(cfg)  # build, allocate, warm up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = run(cfg)
         torch.cuda.synchronize()
@@ -244,7 +308,9 @@ def cmd_profile(args):
         # that launch them report the same time again, so they are skipped
         kernels = {}
         for evt in prof.key_averages():
-            if evt.device_type == DeviceType.CUDA:
+            # the VEGAS engine's named ranges also appear on the device, as
+            # spans: they are not kernels
+            if evt.device_type == DeviceType.CUDA and evt.key not in VEGAS_STAGES:
                 kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total
         total = sum(kernels.values()) / 1e6
         by_kind = {}
@@ -264,9 +330,34 @@ def cmd_profile(args):
             gm_share=gm / wall, advance_share=(total - gm) / wall,
             idle_share=(wall - total) / wall, device_s_by_kind=by_kind,
             top_kernels=[(k[:80], v / 1e6) for k, v in top], card=smi,
+            **({"mc_samples": cfg.mc_samples, "peak_bytes": torch.cuda.max_memory_allocated(),
+                **_stage_split(prof)} if driver == "vegas" else {}),
         )), flush=True)
         if total == 0.0:
             raise SystemExit("the profiler recorded no device time")
+
+
+def _stage_split(prof):
+    """Device seconds of the kernels inside each of the engine's named
+    ranges (a kernel belongs to the range whose device span holds its
+    midpoint; the ctypes-launched sums kernel has no aten op to be charged
+    to, so spans, not op trees, decide), and each range's device span."""
+    from torch.autograd import DeviceType
+
+    spans, kernels = [], []
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            item = (evt.time_range.start, evt.time_range.end, evt.name)
+            (spans if evt.name in VEGAS_STAGES else kernels).append(item)
+    by_stage = dict.fromkeys(VEGAS_STAGES + ("outside",), 0.0)
+    for start, end, _ in kernels:
+        mid = (start + end) / 2
+        stage = next((name for lo, hi, name in spans if lo <= mid <= hi), "outside")
+        by_stage[stage] += (end - start) / 1e6
+    span_s = dict.fromkeys(VEGAS_STAGES, 0.0)
+    for lo, hi, name in spans:
+        span_s[name] += (hi - lo) / 1e6
+    return {"kernel_s_by_stage": by_stage, "span_s_by_stage": span_s}
 
 
 def _ints(s):
@@ -275,7 +366,7 @@ def _ints(s):
 
 def _drivers(s):
     names = s.split(",")
-    unknown = set(names) - {"integrate", "device", "distributed", "service"}
+    unknown = set(names) - {"integrate", "device", "distributed", "service", "vegas"}
     if unknown:
         raise argparse.ArgumentTypeError(f"unknown drivers {sorted(unknown)}")
     return names
@@ -301,7 +392,7 @@ def main(argv=None):
     p = sub.add_parser("profile", help="torch.profiler breakdown of the main path")
     p.add_argument("--trace-dir", default=None, help="write Chrome traces here")
     p.add_argument("--drivers", type=_drivers, default=["integrate"],
-                   help="comma-separated: integrate, device, distributed, service")
+                   help="comma-separated: integrate, device, distributed, service, vegas")
     args = ap.parse_args(argv)
     if args.cmd != "ptxas" and not torch.cuda.is_available():
         raise SystemExit("gm_perf: no CUDA device; this tool measures the card only")

@@ -6,9 +6,15 @@
   PYTHONPATH=src python -m repro_torch.launch.integrate --device-loop --d 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.integrate --rule gauss_kronrod --d 3 --device cpu
 
+High dimension through the VEGAS Monte Carlo backend; a bare family name
+samples one theta from --theta-seed:
+  PYTHONPATH=src python -m repro_torch.launch.integrate --backend vegas --d 10 \\
+      --integrand genz_gaussian --rel-tol 1e-3 --device cpu
+
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--devices N``
 runs N ranks from this one process: rank r on cuda:(r mod device count), or
-all on the CPU with ``--device cpu``.
+all on the CPU with ``--device cpu``; with VEGAS the ranks split the sample
+shards (the result is bit-identical to one rank).
 """
 
 import argparse
@@ -25,6 +31,22 @@ def main(argv=None) -> None:
     ap.add_argument("--max-iters", type=int, default=600)
     ap.add_argument(
         "--eval-window-min", type=int, default=256, help="smallest window ladder rung"
+    )
+    ap.add_argument(
+        "--backend",
+        default="cubature",
+        choices=["cubature", "vegas", "auto"],
+        help="cubature (deterministic subdivision), vegas (adaptive "
+        "importance-sampling MC for high d), or auto (picks by dimension)",
+    )
+    ap.add_argument("--mc-samples", type=int, default=8192, help="vegas samples per iteration")
+    ap.add_argument("--mc-iters", type=int, default=100, help="vegas iteration cap")
+    ap.add_argument("--mc-seed", type=int, default=0, help="vegas seed (same seed, same bits)")
+    ap.add_argument(
+        "--theta-seed",
+        type=int,
+        default=0,
+        help="theta draw for a bare family-name --integrand (e.g. 'genz_gaussian')",
     )
     ap.add_argument(
         "--device", default="cuda", help="cuda (default) or cpu (plain PyTorch path)"
@@ -51,31 +73,54 @@ def main(argv=None) -> None:
     )
     args = ap.parse_args(argv)
 
+    import numpy as np
+
     from repro_torch.core.adaptive import integrate, integrate_device
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.core.distributed import integrate_distributed
-    from repro_torch.core.integrands import get
+    from repro_torch.core.integrands import PARAM_REGISTRY, get, to_spec
     from repro_torch.core.ranks import cuda_devices
+    from repro_torch.mc import integrate_vegas, integrate_vegas_distributed
 
+    integrand = args.integrand
+    if integrand in PARAM_REGISTRY:
+        # a bare family name: one theta, written as a spec so that the GM
+        # kernel takes it as (family, theta) and the exact value follows
+        family = PARAM_REGISTRY[integrand]
+        integrand = to_spec(family, family.sample_theta(args.d, np.random.default_rng(args.theta_seed)))
     cfg = QuadratureConfig(
         d=args.d,
-        integrand=args.integrand,
+        integrand=integrand,
         rel_tol=args.rel_tol,
         capacity=args.capacity,
         classifier=args.classifier,
         rule=args.rule,
         max_iters=args.max_iters,
         eval_window_min=args.eval_window_min,
+        backend=args.backend,
+        mc_samples=args.mc_samples,
+        mc_max_iters=args.mc_iters,
+        mc_seed=args.mc_seed,
         message_cap=args.message_cap,
         redistribution=args.redistribution,
         sync_every=args.sync_every,
     )
+    devices = None
     if args.devices > 1:
         devices = (
             [args.device] * args.devices
             if args.device == "cpu"
             else cuda_devices(args.devices)
         )
+    if cfg.resolved_backend() == "vegas":
+        if devices is not None:
+            res = integrate_vegas_distributed(cfg, devices=devices)
+            print(res.summary())
+            print(f"devices={len(devices)} (sample shards split over the ranks)")
+        else:
+            res = integrate_vegas(cfg, device=args.device)
+            print(res.summary())
+    elif devices is not None:
         res = integrate_distributed(cfg, devices=devices)
         print(res.summary())
         print(f"devices={res.n_devices} mean_imbalance={res.mean_imbalance():.3f}")
@@ -85,7 +130,7 @@ def main(argv=None) -> None:
     else:
         res = integrate(cfg, device=args.device)
         print(res.summary())
-    exact = get(args.integrand).exact(args.d)
+    exact = get(integrand).exact(args.d)
     rel = abs(res.integral - exact) / max(abs(exact), 1e-300)
     print(f"exact={exact:.15e} true_rel_err={rel:.3e}")
 

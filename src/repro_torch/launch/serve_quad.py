@@ -7,12 +7,17 @@ The same on the CPU (the plain PyTorch path), four ranks with cyclic problem
 rebalancing, easy and hard problems striped over the fleet:
   PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --d 3 \\
       --n-requests 32 --batch-slots 8 --devices 4 --rel-tols 1e-2,1e-7 --validate
+A high-dimensional fleet through the VEGAS pool (one rank):
+  PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --backend vegas \\
+      --d 10 --n-requests 6 --batch-slots 2 --rel-tol 1e-3 --mc-iters 60 --validate
+Graceful re-routing (capacity evictions go to a VEGAS pool):
+  PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --graceful \\
+      --d 2 --capacity 32 --rel-tol 1e-7 --n-requests 4 --batch-slots 2 --validate
 
 Runs on the CUDA device unless ``--device cpu`` is given; ``--devices N``
 runs N ranks from this one process (rank r on cuda:(r mod device count)).
-The flags of the service's other parts (the VEGAS pool, graceful
-re-routing, checkpoints, chaos injection, telemetry) are not ported yet and
-raise.
+The flags of the service's other parts (checkpoints, chaos injection,
+telemetry) are not ported yet and raise.
 """
 
 import argparse
@@ -20,7 +25,6 @@ import time
 
 # flags of parts not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "graceful": "queue 1 item 7b (graceful re-routing)",
     "checkpoint_dir": "queue 1 item 7b (service checkpoints)",
     "checkpoint_every": "queue 1 item 7b (service checkpoints)",
     "resume": "queue 1 item 7b (service checkpoints)",
@@ -63,8 +67,18 @@ def main(argv=None) -> None:
     ap.add_argument("--deadline-s", type=float, default=None, help="per-request wall-clock SLO")
     ap.add_argument("--max-evals", type=float, default=None, help="per-request evaluation SLO")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--backend", default="cubature", choices=("cubature", "vegas", "auto"))
-    ap.add_argument("--graceful", action="store_true")
+    ap.add_argument(
+        "--backend", default="cubature", choices=("cubature", "vegas", "auto"),
+        help="engine pool: cubature, the VEGAS pool (single rank), or auto (by dimension)",
+    )
+    ap.add_argument("--mc-samples", type=int, default=8192, help="vegas samples per iteration")
+    ap.add_argument("--mc-iters", type=int, default=100, help="vegas iteration cap")
+    ap.add_argument("--mc-seed", type=int, default=0, help="vegas seed (same seed, same bits)")
+    ap.add_argument(
+        "--graceful", action="store_true",
+        help="re-route capacity/nonfinite evictions once to a VEGAS pool and retry "
+        "max_iters requests at a loosened tolerance (results carry provenance)",
+    )
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=None)
     ap.add_argument("--resume", action="store_true")
@@ -82,7 +96,7 @@ def main(argv=None) -> None:
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.core.integrands import get_param
     from repro_torch.core.ranks import cuda_devices
-    from repro_torch.service import QuadRequest, BatchScheduler
+    from repro_torch.service import BatchScheduler, GracefulScheduler, QuadRequest
     from repro_torch.service.batch_engine import estimate_state_bytes
 
     family = get_param(args.family)
@@ -96,14 +110,22 @@ def main(argv=None) -> None:
         eval_window_min=args.eval_window_min,
         max_iters=args.max_iters,
         backend=args.backend,
+        mc_samples=args.mc_samples,
+        mc_max_iters=args.mc_iters,
+        mc_seed=args.mc_seed,
         sync_every=args.sync_every,
         service_devices=args.devices,
         rebalance=args.rebalance,
     )
-    if cfg.resolved_backend() == "vegas":
-        ap.error("the VEGAS engine pool is not ported yet (ROADMAP queue 1 item 8)")
+    vegas = cfg.resolved_backend() == "vegas"
+    if vegas and args.devices not in (0, 1):
+        raise SystemExit(
+            "--backend vegas serves through a single-device pool (MC parallelism "
+            "shards samples, not slots: see repro_torch.mc.multi_device); drop --devices"
+        )
     # fail fast on fleets the stores cannot hold: they are allocated up front
-    need = estimate_state_bytes(cfg, family)
+    # (the VEGAS pool's state is a grid and counts per slot: no check)
+    need = 0 if vegas else estimate_state_bytes(cfg, family)
     if need > args.max_state_bytes:
         raise SystemExit(
             f"--batch-slots {args.batch_slots} x --capacity {args.capacity} needs "
@@ -111,10 +133,11 @@ def main(argv=None) -> None:
             f"{args.max_state_bytes / 2**30:.2f} GiB limit; lower --batch-slots or "
             "--capacity (or raise --max-state-bytes)"
         )
+    n_ranks = 1 if vegas else args.devices
     if args.device == "cpu":
-        devices = ["cpu"] * max(args.devices, 1)
+        devices = ["cpu"] * max(n_ranks, 1)
     else:
-        devices = cuda_devices(args.devices or torch.cuda.device_count())
+        devices = cuda_devices(n_ranks or torch.cuda.device_count())
     if args.batch_slots % len(devices):
         raise SystemExit(
             f"--batch-slots {args.batch_slots} must be a multiple of the "
@@ -137,9 +160,10 @@ def main(argv=None) -> None:
     print(
         f"serving {len(requests)} x {family.name} (d={args.d}) through "
         f"{cfg.batch_slots} slots on {len(devices)} rank(s) {[str(d) for d in devices]} "
-        f"(rebalance={cfg.rebalance})"
+        f"(backend={cfg.resolved_backend()}, rebalance={cfg.rebalance}"
+        f"{', graceful' if args.graceful else ''})"
     )
-    sched = BatchScheduler(cfg, family, devices=devices)
+    sched = (GracefulScheduler if args.graceful else BatchScheduler)(cfg, family, devices=devices)
     t0 = time.perf_counter()
     n = 0
     for res in sched.serve(requests):

@@ -6,6 +6,8 @@ over one or more ranks.
   masks, and problem-level cyclic migration between ranks;
 - :mod:`repro_torch.service.scheduler`: the continuous-batching host loop;
 - :mod:`repro_torch.service.api`: ``integrate_batch`` / ``serve``;
+- :mod:`repro_torch.service.routing`: graceful re-routing of degraded
+  requests (cubature evictions to the VEGAS pool, relaxed retries);
 - :mod:`repro_torch.service.sharded_selftest`: the JAX package's sharded
   service cases on N ranks.
 
@@ -14,14 +16,17 @@ Results are the same at every rank count, for every terminal status.
 
 from repro_torch.service.api import integrate_batch, serve
 from repro_torch.service.batch_engine import BatchEngine, BatchState
+from repro_torch.service.routing import GracefulScheduler, ReroutePolicy
 from repro_torch.service.scheduler import BatchScheduler, QuadRequest, QuadResult
 
 __all__ = [
     "BatchEngine",
     "BatchScheduler",
     "BatchState",
+    "GracefulScheduler",
     "QuadRequest",
     "QuadResult",
+    "ReroutePolicy",
     "integrate_batch",
     "serve",
 ]

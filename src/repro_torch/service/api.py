@@ -12,7 +12,9 @@ Two shapes of the same engine:
   availability.
 
 Both run on the visible GPUs unless ``devices`` says otherwise (e.g.
-``devices=["cpu"]``; one entry per rank).
+``devices=["cpu"]``; one entry per rank).  ``backend="vegas"`` (or
+``"auto"`` at high d) serves through the single-rank VEGAS pool, and
+``serve(graceful=True)`` through :class:`~repro_torch.service.routing.GracefulScheduler`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand
+from repro_torch.service.routing import GracefulScheduler
 from repro_torch.service.scheduler import (
     RESILIENCE,
     BatchScheduler,
@@ -61,20 +64,17 @@ def serve(
 ) -> Iterator[QuadResult]:
     """Stream results for an arbitrary request iterable (convergence order).
 
-    Extra keyword arguments (``on_tick``) pass through to
-    :class:`BatchScheduler`.  ``graceful`` (re-routing degraded requests)
-    and ``resume`` belong to the service's resilience half, not ported yet:
-    they raise.
+    Extra keyword arguments (``on_tick``, and ``policy`` with ``graceful``)
+    pass through to the scheduler.  ``graceful`` serves through
+    :class:`GracefulScheduler`: ``capacity`` / ``nonfinite`` cubature
+    evictions are re-routed once to a VEGAS pool, ``max_iters`` requests
+    retried at a loosened tolerance.  ``resume`` belongs to the service's
+    checkpoints, not ported yet: it raises.
     """
-    if graceful:
-        raise NotImplementedError(
-            "graceful re-routing is not ported yet (ROADMAP queue 1 item 7b; "
-            "it re-routes to the VEGAS pool, queue 1 item 8)"
-        )
     if resume:
         raise NotImplementedError(RESILIENCE)
-    sched = BatchScheduler(cfg, family, devices=devices, **scheduler_kwargs)
-    return sched.serve(requests)
+    cls = GracefulScheduler if graceful else BatchScheduler
+    return cls(cfg, family, devices=devices, **scheduler_kwargs).serve(requests)
 
 
 def integrate_batch(

@@ -54,7 +54,7 @@ from repro_torch.core.adaptive import (
 from repro_torch.core.classify import classify, nonfinite_mask
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand, get_param
-from repro_torch.core.ranks import Ranks, cuda_devices
+from repro_torch.core.ranks import Ranks, cuda_devices, to_device
 from repro_torch.core.redistribution import (
     exchange_pair_stats,
     make_schedule,
@@ -123,15 +123,6 @@ def estimate_state_bytes(
         + 2 * item + 4 + 2  # rel_tol, abs_tol, overflow_it, occupied, done
     )
     return cfg.batch_slots * per_slot
-
-
-def _to_device(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A small host array on ``device`` without making the host wait: staged
-    in pinned memory and copied asynchronously on a CUDA device."""
-    t = torch.as_tensor(np.asarray(values), dtype=dtype)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 class BatchEngine:
@@ -257,7 +248,7 @@ class BatchEngine:
             [np.asarray(theta[k], np.float64).reshape(-1) for k in self.family.theta_fields]
             + [np.array([rel, tol], np.float64)]
         )
-        col = _to_device(host, self._dtype, dev)
+        col = to_device(host, self._dtype, dev)
         state.theta[r][:, j] = col[: self.n_theta]
         state.rel_tol[r][j] = col[self.n_theta]
         state.abs_tol[r][j] = col[self.n_theta + 1]
@@ -288,7 +279,7 @@ class BatchEngine:
         cfg, rule = self.cfg, self._rule
         regions = state.regions[r]
         dev = self.ranks.devices[r]
-        idx = _to_device(mine, torch.long, dev)
+        idx = to_device(mine, torch.long, dev)
         n, d = len(mine), cfg.d
         g = {k: getattr(regions, k)[idx, :wa] for k in ROWS}
         g.update({k: getattr(regions, k)[idx] for k in SCALARS + ("n_evals", "it")})
@@ -346,7 +337,7 @@ class BatchEngine:
         regions = state.regions[r]
         dev = self.ranks.devices[r]
         if go.any():
-            sel = slice(None) if go.all() else _to_device(np.flatnonzero(go), torch.long, dev)
+            sel = slice(None) if go.all() else to_device(np.flatnonzero(go), torch.long, dev)
             rows, scalars = split_compact_rows(
                 self.cfg.capacity,
                 {k: g[k][sel] for k in ROWS},
@@ -355,7 +346,7 @@ class BatchEngine:
             )
             for k, v in list(rows.items()) + list(scalars.items()):
                 g[k][sel] = v
-        g["it"] = _to_device(it_after, regions.it.dtype, dev)
+        g["it"] = to_device(it_after, regions.it.dtype, dev)
         for k in ROWS:
             getattr(regions, k)[idx, :wa] = g[k]
         for k in SCALARS + ("n_evals", "it"):

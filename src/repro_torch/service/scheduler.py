@@ -27,10 +27,15 @@ estimate), ``no_active``, ``max_iters``, ``nonfinite`` (NaN/Inf estimates,
 quarantined in the engine) and ``deadline`` (the request's ``deadline_s``
 or ``max_evals`` expired at a dispatch boundary).
 
+The scheduler fronts two engine pools behind one slot protocol: the
+cubature :class:`BatchEngine` and the Monte Carlo
+:class:`~repro_torch.mc.engine.VegasBatchEngine` (``backend="auto"`` picks
+by dimension).  Fallback re-routing of degraded requests lives in
+:mod:`repro_torch.service.routing`.
+
 Not ported yet (ROADMAP queue 1 item 7b): service checkpoints and resume,
 fault injection, the dispatch watchdog and the elastic mesh; their
-arguments raise :class:`NotImplementedError`.  The VEGAS engine pool is
-queue 1 item 8.
+arguments raise :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import numpy as np
 
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand
+from repro_torch.mc.engine import VegasBatchEngine
 from repro_torch.service.batch_engine import BatchEngine, BatchState
 from repro_torch.service.stats import ServiceStats
 
@@ -56,14 +62,13 @@ def make_engine(
     cfg: QuadratureConfig,
     family: Union[ParamIntegrand, str, None] = None,
     devices: Optional[Sequence] = None,
-) -> BatchEngine:
-    """Engine for ``cfg``'s resolved backend (the cubature engine; the VEGAS
-    pool is not ported yet)."""
+) -> Union[BatchEngine, VegasBatchEngine]:
+    """Engine for ``cfg``'s resolved backend: the cubature
+    :class:`BatchEngine`, or the single-rank VEGAS pool (``backend="auto"``
+    resolves by dimension, so high-d fleets are served by MC instead of
+    exploding the region stores)."""
     if cfg.resolved_backend() == "vegas":
-        raise NotImplementedError(
-            "the VEGAS engine pool is not ported yet (ROADMAP queue 1 item 8); "
-            "use backend='cubature'"
-        )
+        return VegasBatchEngine(cfg, family, devices=devices)
     return BatchEngine(cfg, family, devices=devices)
 
 
@@ -90,9 +95,13 @@ class QuadRequest:
 class QuadResult:
     """Terminal state of one request (statuses as in AdaptiveResult).
 
-    The JAX package's result also carries re-routing and evacuation
-    provenance (``attempts``, ``retried_from``, ``evacuated``), which come
-    with the resilience half (ROADMAP queue 1 item 7b).
+    ``backend`` / ``attempts`` / ``retried_from`` record attempt provenance:
+    the engine pool that produced this estimate, the admissions the request
+    consumed in total, and, for a re-routed or retried request, the
+    terminal status of the attempt that triggered the retry (see
+    :class:`repro_torch.service.routing.GracefulScheduler`).  The JAX
+    package's evacuation provenance (``evacuated``) comes with the elastic
+    mesh (ROADMAP queue 1 item 7b).
     """
 
     req_id: int
@@ -104,11 +113,14 @@ class QuadResult:
     admitted_at: int  # scheduler iteration at which the slot was filled
     finished_at: int  # scheduler iteration at which done flipped on
     backend: str = "cubature"  # engine pool that produced this estimate
+    attempts: int = 1  # admissions consumed (1 = first attempt)
+    retried_from: Optional[str] = None  # prior attempt's terminal status
 
     def summary(self) -> str:
+        via = f" via={self.backend}" if self.attempts > 1 else ""
         return (
             f"req={self.req_id} I={self.integral:.15e} eps={self.error:.3e} "
-            f"[{self.status}] iters={self.iterations} evals={self.n_evals:.3g}"
+            f"[{self.status}] iters={self.iterations} evals={self.n_evals:.3g}{via}"
         )
 
 
@@ -146,7 +158,8 @@ def decode_request(obj: dict, theta_template) -> QuadRequest:
 
 
 class BatchScheduler:
-    """Drives a :class:`BatchEngine` over an arbitrary stream of requests.
+    """Drives a :class:`BatchEngine` (or a VEGAS pool) over an arbitrary
+    stream of requests.
 
     After :meth:`serve` completes, :attr:`last_stats` is a dict view of the
     run's :class:`~repro_torch.service.stats.ServiceStats`: ``iterations``
@@ -163,7 +176,7 @@ class BatchScheduler:
         self,
         cfg: QuadratureConfig,
         family: Union[ParamIntegrand, str, None] = None,
-        engine: Optional[BatchEngine] = None,
+        engine: Union[BatchEngine, VegasBatchEngine, None] = None,
         devices: Optional[Sequence] = None,
         checkpointer=None,
         checkpoint_every: int = 0,

@@ -325,18 +325,21 @@ def test_resilience_arguments_raise(kw):
 
 
 def test_resume_graceful_and_vegas_raise():
+    """Resume (service checkpoints) still raises, with or without graceful
+    re-routing; the VEGAS pool raises only when asked for several ranks."""
     cfg = QuadratureConfig(**_fields())
     sched = BatchScheduler(cfg, devices=CPU)
     with pytest.raises(NotImplementedError, match="item 7b"):
         next(iter(sched.serve([], resume=True)))
     with pytest.raises(NotImplementedError, match="item 7b"):
         serve(cfg, [], devices=CPU, resume=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve(cfg, [], devices=CPU, graceful=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_engine(dataclasses.replace(cfg, backend="vegas"), devices=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_engine(dataclasses.replace(cfg, backend="auto", d=9), devices=CPU)
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        serve(cfg, [], devices=CPU, graceful=True, resume=True)
+    with pytest.raises(ValueError, match="single-device"):
+        make_engine(dataclasses.replace(cfg, backend="vegas"), devices=CPU * 2)
+    with pytest.raises(ValueError, match="single-device"):
+        make_engine(dataclasses.replace(cfg, backend="auto", d=9), devices=CPU * 2)
+    assert make_engine(dataclasses.replace(cfg, backend="vegas"), devices=CPU).backend == "vegas"
 
 
 def test_without_devices_raises_when_cuda_absent(monkeypatch):
@@ -363,8 +366,8 @@ def test_cli_serves_on_cpu_ranks():
 
 
 @pytest.mark.parametrize(
-    "args", [["--graceful"], ["--resume"], ["--trace", "t.json"], ["--backend", "vegas"],
-             ["--checkpoint-dir", "ck"], ["--chaos-fail-device", "1:3"], ["--metrics", "m"]],
+    "args", [["--resume"], ["--trace", "t.json"], ["--checkpoint-dir", "ck"],
+             ["--chaos-fail-device", "1:3"], ["--metrics", "m"]],
     ids=lambda a: a[0],
 )
 def test_cli_flags_of_other_slices_fail_clearly(args):
