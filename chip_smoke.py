@@ -53,8 +53,12 @@ Phases, each of which passes or raises (a failure exits nonzero):
    high-dimension user's sizes (genz_gaussian d=15 and genz_product_peak
    d=10 at 2^22 samples, f6 d=9 at 2^20; float64, 8 shards).  First the
    sums kernel against its plain version (bit-equal to the plain version's
-   sample-order sums on the CPU; within 1e-10 of the largest sum against
-   its index_add_ on the card).  (a) integrate_vegas, each case twice:
+   sample-order sums on the CPU, NaN where NaN; within 1e-10 of the largest
+   finite sum against its index_add_ on the card) at these shapes and at
+   gm_perf.py's SUMS_HARD_CASES: one bin per axis, y at and beyond the
+   edges and NaN, NaN, +-inf and -0.0 in w, 2 to 65535 bins (one pass and
+   digit passes), short and odd shards, unaligned inputs, float32.
+   (a) integrate_vegas, each case twice:
    the same bits, converged, within 5 reported errors of the exact value,
    one sums launch per iteration; (b) integrate_vegas_distributed on 2 and
    4 ranks (cuda:(r mod count)): bit-equal to (a), one launch per rank
@@ -67,12 +71,16 @@ Phases, each of which passes or raises (a failure exits nonzero):
    9's results, the ones it evicted as capacity come back from the VEGAS
    pool with attempts 2, and last_stats counts them as reroutes.
 
+Last, the sums kernel timed at gm_perf.py's SUMS_TIMED shapes (phase 10's
+d=15 and f6 cases, phase 11a's pool): per call, its chunk and combine
+launches, the plain version, index_add_ alone and the byte bound.
 It ends with one JSON line per kernel summary and, last, the device line.
 """
 
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -86,14 +94,11 @@ import torch  # noqa: E402
 # the three main-path cases, the (integrand, d) timed at B = TIMED_B, and
 # the helpers that gm_perf.py's measurements share with this script
 from repro_torch.launch.gm_perf import (  # noqa: E402
-    MAIN_CASES, TIMED, TIMED_B, VEGAS_CASES, VEGAS_POOL, card, inputs, pool_thetas,
-    serve_pool, soa, time_ms, vegas_case,
+    MAIN_CASES, PEAK_FP64_FLOPS, PEAK_HBM_BYTES, SUMS_HARD_CASES, SUMS_TIMED, TIMED, TIMED_B,
+    VEGAS_CASES, VEGAS_POOL, bits_equal, card, inputs, pool_thetas, serve_pool, soa,
+    sums_hard_case, sums_inputs, time_ms, time_sums, vegas_case,
 )
 
-# H100 SXM peaks (NVIDIA data sheet): FP64 outside the tensor cores (an FMA
-# counted as two operations), HBM3.
-PEAK_FP64_FLOPS = 34e12
-PEAK_HBM_BYTES = 3.35e12
 # FP64 lanes per SM on Hopper: each issues one add, multiply or FMA per clock
 FP64_LANES_PER_SM = 64
 
@@ -165,6 +170,20 @@ def phase_build():
     spilled = [(dtype, name, d) for (dtype, name), by_d in report.items()
                for d, r in by_d.items() if dtype == "float64" and d <= 8 and r[1] + r[2]]
     assert not spilled, f"float64 instantiations at D <= 8 spill: {spilled}"
+    log("  vegas_sums kernels: registers / spill bytes (stores+loads):")
+    kernel, spill = None, 0
+    for line in built["vegas_sums"].log.splitlines():
+        m = re.search(r"Compiling entry function '\S*vegas_sums_(chunks|combine)I([df])(?:Lb([01]))?",
+                      line)
+        if m:
+            path = {None: "", "0": ", one pass", "1": ", digit passes"}[m.group(3)]
+            kernel = f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}{path}>"
+        elif kernel and "spill stores" in line:
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif kernel and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            log(f"  {kernel:<30} regs {regs:>3} spill {spill}")
+            kernel = None
 
 
 def _plain(entry, centers, halfw, theta):
@@ -706,25 +725,11 @@ def phase_service():
 SUMS_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 
-def _sums_inputs(rng, d, n_samples, n_strat, problems=1, dtype=torch.float64):
-    """Inputs of one vegas_sums call: w (P, N), y (d, P, N), cum (P, M),
-    with per-cube counts from skewed weights (as adapted counts are)."""
-    from repro_torch.mc import stratified
-
-    m = n_strat**d
-    weights = torch.as_tensor(rng.uniform(size=(problems, m)) ** 3)
-    counts = stratified.allocate_counts(weights, n_samples, 4)
-    cum = torch.cumsum(counts, dim=-1).cuda()
-    w = torch.as_tensor(rng.normal(size=(problems, n_samples)) * np.exp(rng.normal(size=(problems, n_samples))),
-                        dtype=dtype, device="cuda")
-    y = torch.rand((d, problems, n_samples), dtype=dtype, device="cuda")
-    return w, y, cum
-
-
 def _sums_check(w, y, cum, nb, shard0, ns, what):
     """The kernel against the plain version: bit-equal on a CPU copy, and
-    within SUMS_RTOL of the largest sum on the card; returns the largest
-    absolute difference on the card."""
+    within SUMS_RTOL of the largest finite sum on the card (the infinite
+    and NaN sums in the same places: no order changes them); returns the
+    largest absolute difference of a finite sum on the card."""
     from repro_torch.kernels import vegas_sums as vs
 
     got = vs.vegas_sums(w, y, cum, nb, shard0, ns)
@@ -732,25 +737,32 @@ def _sums_check(w, y, cum, nb, shard0, ns, what):
     cpu = vs.vegas_sums_ref(w.cpu(), y.cpu(), cum.cpu(), nb, shard0, ns)
     worst = 0.0
     for g, r, c, label in zip(got, ref, cpu, ("s1", "s2", "g")):
-        assert torch.equal(g.cpu(), c), f"{what} {label}: kernel and CPU plain version differ"
-        err = float((g - r).abs().max())
-        assert err <= SUMS_RTOL[w.dtype] * float(r.abs().max()), f"{what} {label}: {err}"
-        worst = max(worst, err)
+        assert bits_equal(g.cpu(), c), f"{what} {label}: kernel and CPU plain version differ"
+        fin = torch.isfinite(r)
+        assert bits_equal(torch.where(fin, 0, g), torch.where(fin, 0, r)), f"{what} {label}"
+        if bool(fin.any()):
+            err = float((g - r)[fin].abs().max())
+            assert err <= SUMS_RTOL[w.dtype] * float(r[fin].abs().max()), f"{what} {label}: {err}"
+            worst = max(worst, err)
     return worst
 
 
 def phase_vegas_kernel_vs_plain():
     """The sums kernel at the shapes of phases 10 and 11, a rank's slice of
-    shards, and float32."""
+    shards, float32, and SUMS_HARD_CASES (both of its paths); with each
+    path's plan (shared memory, resident blocks per SM)."""
     from repro_torch.kernels import vegas_sums as vs
 
+    for dtype in (torch.float64, torch.float32):
+        for nb in (64, 65535):
+            log(f"vegas sums plan nb={nb} {dtype}: {json.dumps(vs.plan(dtype, nb))}")
     rng = np.random.default_rng(2)
     before = vs.launch_count()
     worst, n = 0.0, 0
     t0 = time.perf_counter()
     for d, samples, n_strat, problems in [(15, 1 << 22, 2, 1), (10, 1 << 22, 3, 1),
                                           (9, 1 << 20, 3, 1), (10, 1 << 18, 2, 16), (3, 4096, 4, 3)]:
-        w, y, cum = _sums_inputs(rng, d, samples, n_strat, problems)
+        w, y, cum = sums_inputs(rng, d, samples, n_strat, problems)
         ns = samples // 8
         worst = max(worst, _sums_check(w, y, cum, 64, 0, ns, f"d={d} N={samples} P={problems}"))
         # the slice of shards 4..5 that rank 2 of 4 reduces
@@ -758,14 +770,19 @@ def phase_vegas_kernel_vs_plain():
         worst = max(worst, _sums_check(w[:, sl].contiguous(), y[:, :, sl].contiguous(), cum, 64, 4,
                                        ns, f"d={d} N={samples} shards 4-5"))
         n += 2
-    w, y, cum = _sums_inputs(rng, 5, 8192, 3, 2, torch.float32)
+    w, y, cum = sums_inputs(rng, 5, 8192, 3, 2, torch.float32)
     worst = max(worst, _sums_check(w, y, cum, 16, 0, 1024, "float32"))
     n += 1
+    for name in SUMS_HARD_CASES:
+        w, y, cum, nb, shard0, ns = sums_hard_case(name, "cuda")
+        _sums_check(w, y, cum, nb, shard0, ns, name)
+        n += 1
     torch.cuda.synchronize()
     assert vs.launch_count() - before == n, (vs.launch_count() - before, n)
-    log(f"vegas sums vs plain: {n} checks passed in {time.perf_counter() - t0:.1f} s; "
-        f"bit-equal to the plain version on the CPU, largest difference from its index_add_ "
-        f"on the card {worst:.3e}")
+    log(f"vegas sums vs plain: {n} checks passed in {time.perf_counter() - t0:.1f} s "
+        f"({len(SUMS_HARD_CASES)} hard cases: {', '.join(SUMS_HARD_CASES)}); bit-equal to the "
+        f"plain version on the CPU, largest difference from its index_add_ on the card "
+        f"{worst:.3e}")
     return worst
 
 
@@ -894,47 +911,24 @@ def phase_graceful(phase9):
 
 
 def phase_vegas_timing():
-    """The sums kernel at phase 10's first case (d=15, 2^22 samples, 8
-    shards, 2^15 cubes, 64 bins), its plain version and index_add_ alone."""
+    """The sums kernel at SUMS_TIMED's three shapes (8 shards, 64 bins,
+    float64): its time and its two launches', its plain version's,
+    index_add_ alone, and the bound (gm_perf.time_sums)."""
     from repro_torch.kernels import vegas_sums as vs
 
-    d, samples, n_strat, nb = VEGAS_CASES[0][1], VEGAS_CASES[0][2], 2, 64
-    ns = samples // 8
-    w, y, cum = _sums_inputs(np.random.default_rng(4), d, samples, n_strat)
-    m = cum.shape[1]
-    before = vs.launch_count()
-    err = _sums_check(w, y, cum, nb, 0, ns, "timed shape")
-    ms = time_ms(lambda: vs.vegas_sums(w, y, cum, nb, 0, ns), 20)
-    plain_ms = time_ms(lambda: vs.vegas_sums_ref(w, y, cum, nb, 0, ns), 5)
-    # index_add_ alone, on output ids computed beforehand: the library's part
-    index = torch.arange(samples, device="cuda")
-    row_id = index // ns
-    ids = row_id * m + torch.searchsorted(cum[0], index, right=True)
-    b = torch.clamp((y[:, 0] * nb).long(), 0, nb - 1)
-    bin_ids = ((row_id[None] * d + torch.arange(d, device="cuda")[:, None]) * nb + b).reshape(-1)
-    w2 = w[0] * w[0]
-    w2d = w2.expand(d, samples).reshape(-1)
-
-    def library():
-        torch.zeros(8 * m, dtype=w.dtype, device="cuda").index_add_(0, ids, w[0])
-        torch.zeros(8 * m, dtype=w.dtype, device="cuda").index_add_(0, ids, w2)
-        torch.zeros(8 * d * nb, dtype=w.dtype, device="cuda").index_add_(0, bin_ids, w2d)
-
-    library_ms = time_ms(library, 5)
-    assert vs.launch_count() - before == 1 + 3 + 20
-    # least time: read w, y and cum once, write s1, s2 and g once; FP64
-    # operations: a sum and a square-and-sum per sample, and per (axis,
-    # sample) the y * nb and the matching bin's square-and-sum
-    bytes_moved = 8 * (samples + d * samples + m + 2 * 8 * m + 8 * d * nb)
-    ops = 3 * samples + 3 * d * samples
-    bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
-    ops_ms = ops / PEAK_FP64_FLOPS * 1e3
-    row = dict(d=d, samples=samples, shards=8, cubes=m, bins=nb, dtype="float64", ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=bytes_moved,
-               ops=ops, max_abs_err=err)
-    log("timing: " + json.dumps(row))
-    return row
+    rows = []
+    for label, d, samples, n_strat, problems in SUMS_TIMED:
+        w, y, cum = sums_inputs(np.random.default_rng(4), d, samples, n_strat, problems)
+        before = vs.launch_count()
+        err = _sums_check(w, y, cum, 64, 0, samples // 8, f"timed {label}")
+        row = dict(shape=label, **time_sums(w, y, cum, 64, 8), max_abs_err=err)
+        # the check, 3 warm-ups and 20 timed calls, 20 profiled calls
+        assert vs.launch_count() - before == 1 + 23 + 20, vs.launch_count() - before
+        log("timing: " + json.dumps(row))
+        rows.append(row)
+        del w, y, cum
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -954,7 +948,7 @@ def main():
     gm_graceful, mc_graceful, _ = phase_graceful(phase9)
     launches += gm_graceful
     vegas_launches += mc_graceful
-    vt = phase_vegas_timing()
+    vt, *others = phase_vegas_timing()
     t = timings[0]
     kernel = dict(
         name="genz_malik_eval", route="cuda",
@@ -970,7 +964,11 @@ def main():
         replaces="src/repro/mc/engine.py:196 (jax.ops.segment_sum; no TPU kernel)",
         launches=vegas_launches, max_abs_err=vt["max_abs_err"], ms=vt["ms"],
         plain_ms=vt["plain_ms"], bound_ms=vt["bound_ms"], bound_by=vt["bound_by"],
-        library_ms=vt["library_ms"], at=f"d={vt['d']} N={vt['samples']} float64",
+        library_ms=vt["library_ms"], chunk_ms=vt["chunk_ms"], combine_ms=vt["combine_ms"],
+        at=f"d={vt['d']} N={vt['samples']} float64",
+        other_shapes=[{k: r[k] for k in ("shape", "ms", "chunk_ms", "combine_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "max_abs_err")}
+                      for r in others],
     )
     log(f"card: {smi}")
     log(json.dumps({"kernels": [kernel, sums]}))

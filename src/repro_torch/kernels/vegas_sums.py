@@ -18,7 +18,14 @@ reference's ``segment_sum`` does.
 arithmetic (two ``index_add_`` passes, which add in source order on the
 CPU), so the two give the same bits on the same inputs.  The wrapper
 counts its calls (:func:`launch_count`; a call is the kernel's two
-launches: chunk partials, then the in-order combine).
+launches: chunk partials, then the in-order combine).  The chunk launch
+sorts each chunk's samples by bin, stably, and adds each bin's run in
+sample order: in one pass up to 64 bins, in 6-bit digit passes above;
+:func:`plan` reports which, with its shared memory and occupancy.
+
+Within a chunk's range of cubes every cube is one piece of the chunk's
+scratch row, so at most :data:`CHUNK` cubes may meet one chunk (the
+engine's cubes hold at least ``mc_min_per_cube`` >= 2 samples each).
 """
 
 from __future__ import annotations
@@ -75,6 +82,24 @@ def _entry(dtype: torch.dtype):
         ctypes.c_void_p,  # stream
     ]
     return fn
+
+
+def plan(dtype: torch.dtype, n_bins: int, device=None) -> dict:
+    """The chunk launch on a CUDA device at ``n_bins`` bins: its path
+    (``"one_pass"`` up to 64 bins, else ``"digit_passes"``), dynamic shared
+    bytes per block, and the blocks per SM that
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives."""
+    dev = torch.device("cuda" if device is None else device)
+    lib = build.load("vegas_sums")
+    lib.vegas_sums_plan.restype = ctypes.c_int
+    lib.vegas_sums_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    rc = lib.vegas_sums_plan(index, int(dtype == torch.float64), n_bins, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"vegas_sums_plan failed: cudaError_t {rc} (nb={n_bins})")
+    return dict(path="digit_passes" if out[0] else "one_pass", smem_bytes=out[1],
+                blocks_per_sm=out[2])
 
 
 def _check(w, y, cum, n_bins, shard0, shard_size):

@@ -39,6 +39,7 @@ from repro.mc import stratified as jstrat
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import PARAM_REGISTRY, get as get_integrand, get_param
 from repro_torch.kernels import vegas_sums as vsums
+from repro_torch.launch.gm_perf import sums_hard_case
 from repro_torch.mc import engine, grid, stratified
 from repro_torch.mc.multi_device import integrate_vegas_distributed
 
@@ -257,6 +258,45 @@ def test_sums_chunked_order():
         idx = np.arange(shard * ns, (shard + 1) * ns)
         ws = jnp.asarray(w[0, idx])
         _close(s2[0, shard], jax.ops.segment_sum(ws * ws, cube[idx], m), 1e-14)
+
+
+def _sums_by_definition(w, y, cum, nb, shard0, ns):
+    """The sums' order written as Python loops: in each chunk, each cube
+    piece and each (axis, bin) summed in sample order from +0, then the
+    chunk partials in chunk order from +0; a NaN coordinate falls in bin 0."""
+    (P, n), d, m = w.shape, y.shape[0], cum.shape[1]
+    shards = n // ns
+    s1, s2, g = np.zeros((P, shards, m)), np.zeros((P, shards, m)), np.zeros((P, shards, d, nb))
+    for p in range(P):
+        cube = np.searchsorted(cum[p], shard0 * ns + np.arange(n), side="right")
+        for shard in range(shards):
+            for c0 in range(0, ns, vsums.CHUNK):
+                p1, p2, pg = np.zeros(m), np.zeros(m), np.zeros((d, nb))
+                for j in range(shard * ns + c0, shard * ns + min(c0 + vsums.CHUNK, ns)):
+                    v = float(w[p, j])
+                    p1[cube[j]] += v
+                    p2[cube[j]] += v * v
+                    for i in range(d):
+                        t = float(y[i, p, j]) * nb
+                        pg[i, 0 if t != t else min(max(int(t), 0), nb - 1)] += v * v
+                s1[p, shard] += p1
+                s2[p, shard] += p2
+                g[p, shard] += pg
+    return s1, s2, g
+
+
+@pytest.mark.parametrize("case", ["one_bin", "y_edges", "nb2", "nb300", "w_nonfinite", "odd_ns"])
+def test_sums_hard_cases_by_definition(case):
+    """The plain version (the kernel's contract, bit for bit) against the
+    order's definition on the kernel's hard inputs: every sample of an axis
+    in one bin and one cube, y at 0, -0, 1, below 0, above 1 and NaN, bin
+    counts 2 and 300, NaN, +-inf and -0.0 in w, short last chunks and odd
+    shards."""
+    w, y, cum, nb, shard0, ns = sums_hard_case(case)
+    assert w.dtype == torch.float64
+    got = vsums.vegas_sums(w, y, cum, nb, shard0, ns)
+    for a, want in zip(got, _sums_by_definition(w.numpy(), y.numpy(), cum.numpy(), nb, shard0, ns)):
+        np.testing.assert_array_equal(a.numpy(), want)
 
 
 def test_sums_reject_bad_shapes():

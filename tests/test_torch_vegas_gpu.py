@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.kernels import vegas_sums as vs
+from repro_torch.launch.gm_perf import SUMS_HARD_CASES, bits_equal, sums_hard_case
 from repro_torch.mc import integrate_vegas, integrate_vegas_distributed
 from repro_torch.mc import stratified
 
@@ -36,23 +37,31 @@ def _inputs(d, n, total, m, problems, dtype, seed):
     return w, y, torch.cumsum(counts, dim=-1)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize(
-    "d,n,m,problems,shard0,n_shards",
-    [(3, 8192, 64, 1, 0, 8), (5, 3 * 2500, 243, 2, 1, 3), (10, 1 << 16, 1024, 4, 0, 8),
-     (2, 96, 9, 3, 5, 3)],
-)
-def test_sums_kernel_equals_plain_version_on_the_cpu(cuda, d, n, m, problems, shard0, n_shards,
-                                                     dtype):
+_SHAPES = [(3, 8192, 64, 1, 0, 8), (5, 3 * 2500, 243, 2, 1, 3), (10, 1 << 16, 1024, 4, 0, 8),
+           (2, 96, 9, 3, 5, 3)]
+# (d, n, cubes, problems, shard0, shards) at 64 bins in both types, then
+# the inputs of gm_perf.SUMS_HARD_CASES (by name)
+_CASES = [(dtype, shape) for dtype in (torch.float64, torch.float32) for shape in _SHAPES]
+_CASES += list(SUMS_HARD_CASES)
+
+
+@pytest.mark.parametrize("case", _CASES, ids=lambda c: c if isinstance(c, str) else
+                         f"{str(c[0]).split('.')[-1]}-" + "-".join(map(str, c[1])))
+def test_sums_kernel_equals_plain_version_on_the_cpu(cuda, case):
     """Bit for bit: both add in the same fixed order."""
-    ns = n // n_shards
-    w, y, cum = _inputs(d, n, (shard0 + n_shards) * ns, m, problems, dtype, seed=d + n)
+    if isinstance(case, str):
+        w, y, cum, nb, shard0, ns = sums_hard_case(case, cuda)
+    else:
+        dtype, (d, n, m, problems, shard0, n_shards) = case
+        ns, nb = n // n_shards, 64
+        w, y, cum = (t.to(cuda) for t in _inputs(d, n, (shard0 + n_shards) * ns, m, problems,
+                                                  dtype, seed=d + n))
     before = vs.launch_count()
-    got = vs.vegas_sums(w.to(cuda), y.to(cuda), cum.to(cuda), 64, shard0, ns)
+    got = vs.vegas_sums(w, y, cum, nb, shard0, ns)
     torch.cuda.synchronize()
     assert vs.launch_count() == before + 1
-    for g, r in zip(got, vs.vegas_sums_ref(w, y, cum, 64, shard0, ns)):
-        assert torch.equal(g.cpu(), r)
+    for g, r in zip(got, vs.vegas_sums_ref(w.cpu(), y.cpu(), cum.cpu(), nb, shard0, ns)):
+        assert bits_equal(g.cpu(), r)
 
 
 def test_vegas_same_bits_run_to_run_and_over_ranks(cuda):
