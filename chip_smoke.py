@@ -69,7 +69,22 @@ Phases, each of which passes or raises (a failure exits nonzero):
    samples x iterations; (b) phase 9's one-rank fleet through
    GracefulScheduler: the requests phase 9 finished are equal to phase
    9's results, the ones it evicted as capacity come back from the VEGAS
-   pool with attempts 2, and last_stats counts them as reroutes.
+   pool with attempts 2, and last_stats counts them as reroutes;
+12. the service's resilience (repro_torch.service.checkpoint, faults and
+   the scheduler's watchdog) at phase 9's size: (a) the one-rank fleet
+   with a ServiceCheckpointer (snapshots of 3.4 GB under build/), crashed
+   by crash_at after its second snapshot and after some results, then
+   resumed: the union of the results before the crash and after the
+   resume equals phase 9's tuple for tuple, with at least one replayed;
+   (b) the four-rank fleet with DeviceDown(device=2) lost after a snapshot
+   and healed later: one evacuation at least, the ranks shrink to 2 (64
+   slots over 3 healthy ranks) and regrow to 4, every request's values
+   equal to phase 9's, the evacuated ones marked snapshot or readmit and
+   within the phase's error bar; (c) the chaos self-test
+   (repro_torch.service.chaos_selftest) at 1, 2 and 4 ranks on the card,
+   whose nan_injection is where the NaN sentinel goes through the CUDA GM
+   path.  Snapshot bytes, save and restore seconds and the walls are
+   logged.
 
 Last, the sums kernel timed at gm_perf.py's SUMS_TIMED shapes (phase 10's
 d=15 and f6 cases, phase 11a's pool): per call, its chunk and combine
@@ -910,6 +925,198 @@ def phase_graceful(phase9):
     return gm, mc, len(evicted)
 
 
+# --- the service's resilience (phase 12) ---------------------------------------
+
+# snapshot cadence of 12a (admission ticks; phase 9's fleet has 49 ticks)
+CRASH_EVERY = 16
+# snapshot cadence of 12b, and its rank loss: rank 2 of 4 lost LOSS_AFTER
+# iterations after the first snapshot, back HEAL_AFTER iterations later
+LOSS_EVERY, LOSS_AFTER, HEAL_AFTER = 20, 3, 8
+
+
+def _snapshot_dir():
+    """A fresh directory under the checkout's build/ (gitignored)."""
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    return tempfile.mkdtemp(prefix="phase12_", dir=os.path.join(HERE, "build"))
+
+
+def _timed_checkpointer(directory, keep):
+    """A ServiceCheckpointer that logs the seconds of its saves and restores."""
+    from repro_torch.service import ServiceCheckpointer
+
+    class Timed(ServiceCheckpointer):
+        def __init__(self, directory, keep):
+            super().__init__(directory, keep=keep)
+            self.save_s, self.restore_s = [], []
+
+        def save(self, step, arrays, meta):
+            t0 = time.perf_counter()
+            super().save(step, arrays, meta)
+            self.save_s.append(time.perf_counter() - t0)
+
+        def restore(self, engine, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(engine, step)
+            torch.cuda.synchronize()
+            self.restore_s.append(time.perf_counter() - t0)
+            return out
+
+        def restore_host(self, like, step=None):
+            t0 = time.perf_counter()
+            out = super().restore_host(like, step)
+            self.restore_s.append(time.perf_counter() - t0)
+            return out
+
+    return Timed(directory, keep=keep)
+
+
+def _snapshot_bytes(ckpt):
+    """Bytes of the newest snapshot's arrays file on disk."""
+    step = ckpt.manager.latest_step()
+    return os.path.getsize(os.path.join(ckpt.manager.dir, f"step_{step:08d}", "arrays.npz"))
+
+
+def phase_resilience(phase9, smi):
+    """Phase 12 (see the docstring); returns the GM and sums launches."""
+    import shutil
+
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels import vegas_sums as vs
+    from repro_torch.launch.gm_perf import SERVICE, service_requests
+    from repro_torch.service import BatchScheduler, chaos_selftest
+    from repro_torch.service.faults import DeviceDown, SimulatedCrash, crash_at
+    from repro_torch.service.sharded_selftest import tuples
+
+    cfg = QuadratureConfig(**SERVICE)
+    want = tuples(phase9)
+    finished = sorted({r.finished_at for r in phase9})
+    gm = mc = 0
+    root = _snapshot_dir()
+    try:
+        log(f"phase 12: snapshots under {root}, disk free "
+            f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
+
+        # --- 12a: crash after the second snapshot, resume --------------------
+        ckpt = _timed_checkpointer(os.path.join(root, "a"), keep=1)
+        ticks, crash = [], {}
+
+        def hook(it, state, slot_req):
+            # once the second snapshot is down, crash at the next iteration
+            # at which phase 9 collected a result, so that results land
+            # between the snapshot and the crash
+            ticks.append(it)
+            if len(ticks) + 1 == 2 * CRASH_EVERY:
+                crash["at"] = next(f for f in finished if f > it)
+            if "at" in crash:
+                return crash_at(crash["at"])(it, state, slot_req)
+            return None
+
+        gm_kernel.reset_launch_count()
+        crashing = BatchScheduler(cfg, devices=cuda_devices(1), checkpointer=ckpt,
+                                  checkpoint_every=CRASH_EVERY, on_tick=hook)
+        pre = []
+        t0 = time.perf_counter()
+        try:
+            for r in crashing.serve(service_requests()):
+                pre.append(r)
+        except SimulatedCrash:
+            pass
+        else:
+            raise AssertionError("phase 12a: the crash injector never fired")
+        torch.cuda.synchronize()
+        crash_wall = time.perf_counter() - t0
+        snaps = crashing.last_stats["checkpoints"]
+        nbytes = _snapshot_bytes(ckpt)
+        resumed = BatchScheduler(cfg, devices=cuda_devices(1), checkpointer=ckpt)
+        post, resume_wall = _timed(lambda: list(resumed.serve(service_requests(), resume=True)))
+        gm += gm_kernel.launch_count()
+        # the copies to the host and back alone, on a fleet of the same size
+        # (save_s is the CRC and the write, restore_s the read, the CRC and
+        # the copy back)
+        engine = resumed.engine
+        host, to_host_s = _timed(lambda: engine.to_host(engine.init()))
+        _, place_s = _timed(lambda: engine.place(host))
+        del host
+        by_id = {}
+        for r in pre + post:
+            t = tuples([r])[0]
+            assert by_id.setdefault(r.req_id, t) == t, (by_id[r.req_id], t)
+        replayed = len(pre) + len(post) - len(by_id)
+        row = dict(phase="resilience_resume", card=smi, snapshots_before_crash=snaps,
+                   crash_at=crash["at"], snapshot_step=ckpt.latest_step(),
+                   snapshot_bytes=nbytes, save_s=ckpt.save_s, restore_s=ckpt.restore_s,
+                   to_host_s=to_host_s, place_s=place_s,
+                   crashed_run_wall_s=crash_wall, resumed_wall_s=resume_wall,
+                   results_before_crash=len(pre), results_after_resume=len(post),
+                   replayed=replayed, launches=gm)
+        log(json.dumps(row))
+        assert 1 <= snaps <= 2, row
+        assert [by_id[k] for k in sorted(by_id)] == want, "phase 12a: the union is not phase 9's"
+        assert replayed >= 1, row
+        # per region row: centres and half-widths 16 d B, estimate and error
+        # 16 B, axis 4 B, two flags 2 B (102 B at d = 5: 3.42 GB in all)
+        assert nbytes >= SERVICE["batch_slots"] * SERVICE["capacity"] * (16 * SERVICE["d"] + 22), row
+
+        # --- 12b: rank 2 of 4 lost after a snapshot, healed ------------------
+        loss = ticks[LOSS_EVERY - 2] + LOSS_AFTER  # the it of tick LOSS_EVERY, plus
+        ckpt = _timed_checkpointer(os.path.join(root, "b"), keep=1)
+        gm_kernel.reset_launch_count()
+        sched = BatchScheduler(
+            cfg, devices=cuda_devices(4), checkpointer=ckpt, checkpoint_every=LOSS_EVERY,
+            fault_injector=DeviceDown(device=2, at_tick=loss, restore_at_tick=loss + HEAL_AFTER),
+            max_dispatch_retries=1, retry_backoff_s=0.0,
+        )
+        results, wall = _timed(lambda: sorted(sched.serve(service_requests()),
+                                              key=lambda r: r.req_id))
+        launches = gm_kernel.launch_count()
+        gm += launches
+        stats = sched.last_stats
+        evacuated = [r for r in results if r.evacuated]
+        row = dict(phase="resilience_rank_loss", card=smi, lost_at=loss,
+                   healed_at=loss + HEAL_AFTER, wall_s=wall, launches=launches,
+                   final_ranks=sched.engine.n_ranks, save_s=ckpt.save_s,
+                   restore_s=ckpt.restore_s,
+                   **{k: stats[k] for k in ("checkpoints", "dispatch_retries", "evacuations",
+                                            "mesh_shrinks", "mesh_regrows", "iterations")},
+                   evacuated={kind: sum(r.evacuated == kind for r in evacuated)
+                              for kind in ("snapshot", "readmit")})
+        log(json.dumps(row))
+        assert len(results) == len(phase9), row
+        assert stats["evacuations"] >= 1 and stats["mesh_shrinks"] == 1, row
+        assert stats["mesh_regrows"] >= 1 and sched.engine.n_ranks == 4, row
+        assert chaos_selftest.values(results) == chaos_selftest.values(phase9), [
+            (a, b) for a, b in zip(results, phase9) if a.integral != b.integral][:2]
+        family, requests = sched.engine.family, service_requests()
+        for r in evacuated:
+            assert r.evacuated in ("snapshot", "readmit"), r
+            exact = family.exact(SERVICE["d"], requests[r.req_id].theta)
+            budget = max(1e-16, abs(exact) * requests[r.req_id].rel_tol)
+            assert abs(r.integral - exact) <= 10 * max(r.error, budget), (r, exact)
+        del results, sched
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- 12c: the chaos self-test on the card ---------------------------------
+    gm_kernel.reset_launch_count()
+    vs.reset_launch_count()
+    out, wall = _timed(lambda: chaos_selftest.run(4, "cuda"))
+    gm += gm_kernel.launch_count()
+    mc += vs.launch_count()
+    log(json.dumps(dict(phase="chaos", card=smi, wall_s=wall, gm_launches=gm_kernel.launch_count(),
+                        vegas_launches=vs.launch_count(), **out)))
+    for scen in out["scenarios"].values():
+        # the poisoned requests ended nonfinite on VEGAS after two attempts,
+        # the healthy ones equal to the baseline (asserted in the self-test)
+        assert scen["nan_injection"]["reroutes"] == 3 and scen["nan_injection"]["healthy_parity"]
+    assert out["device_counts"] == [1, 2, 4] and out["elastic_restore"]["union_parity"], out
+    return gm, mc
+
+
 def phase_vegas_timing():
     """The sums kernel at SUMS_TIMED's three shapes (8 shards, 64 bins,
     float64): its time and its two launches', its plain version's,
@@ -948,6 +1155,9 @@ def main():
     gm_graceful, mc_graceful, _ = phase_graceful(phase9)
     launches += gm_graceful
     vegas_launches += mc_graceful
+    gm_resilience, mc_resilience = phase_resilience(phase9, smi)
+    launches += gm_resilience
+    vegas_launches += mc_resilience
     vt, *others = phase_vegas_timing()
     t = timings[0]
     kernel = dict(

@@ -54,6 +54,9 @@ class ParamIntegrand:
     theta_fields: tuple[str, ...]  # positional order for spec strings
     description: str = ""
     kernel_id: Optional[int] = None
+    # theta value from which the GM evaluate makes a lane's results NaN
+    # (repro_torch.service.faults.nan_family); None = never
+    nan_sentinel: Optional[float] = None
 
 
 def _axis_coeff(x: torch.Tensor, start: int = 1) -> torch.Tensor:

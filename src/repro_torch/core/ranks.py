@@ -53,6 +53,12 @@ def to_device(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t
 
 
+def copy_to(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of host array ``a`` on ``device``, never a view of it (on the
+    CPU ``torch.as_tensor`` would share ``a``'s memory)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+
+
 def cuda_devices(n_ranks: int) -> list[torch.device]:
     """``n_ranks`` ranks over the visible GPUs: rank r on cuda:(r mod count).
 

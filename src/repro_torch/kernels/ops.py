@@ -8,6 +8,8 @@ broadcast over the lanes; or ``theta_cols``, one column per run of
 the plain version (``kernels/ref.py``); CUDA tensors go to the CUDA kernel
 (``kernels/genz_malik_eval.py``), or raise.  Nothing falls back from one to
 the other.  There is no padding: the kernel masks its own ragged edge.
+A family with a ``nan_sentinel`` (fault injection) has the lanes of a
+theta holding it set to NaN after either path.
 """
 
 from __future__ import annotations
@@ -86,4 +88,14 @@ def genz_malik_eval(
         )
     else:
         raise ValueError(f"unsupported device {centers.device}")
+    sentinel = getattr(integrand, "nan_sentinel", None)
+    if sentinel is not None and theta_rows is not None:
+        # a fault-injection family (service/faults.py::nan_family): every
+        # lane whose theta holds the sentinel gives NaN, on either route;
+        # the other lanes keep their bits
+        poisoned = torch.any(theta_rows >= sentinel, dim=0)
+        if lanes_per_col:
+            poisoned = poisoned.repeat_interleave(lanes_per_col)
+        out = torch.where(poisoned, torch.nan, torch.cat([torch.stack((i7, i5, i3)), diffs]))
+        i7, i5, i3, diffs = out[0], out[1], out[2], out[3:]
     return i7, i5, i3, diffs.T

@@ -13,11 +13,20 @@ A high-dimensional fleet through the VEGAS pool (one rank):
 Graceful re-routing (capacity evictions go to a VEGAS pool):
   PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --graceful \\
       --d 2 --capacity 32 --rel-tol 1e-7 --n-requests 4 --batch-slots 2 --validate
+Snapshots every 5th admission tick, and a resume from the newest one (it
+serves again the requests in flight at that snapshot, with the same bits):
+  PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --d 3 \\
+      --n-requests 16 --batch-slots 4 --checkpoint-dir /tmp/quad-ckpt --checkpoint-every 5
+  PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --d 3 \\
+      --n-requests 16 --batch-slots 4 --checkpoint-dir /tmp/quad-ckpt --checkpoint-every 5 --resume
+Rank 2 of 4 lost at iteration 3 and back at 9: its slots are evacuated, the
+ranks shrink to 2, and regrow to 4:
+  PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --d 3 \\
+      --n-requests 32 --batch-slots 8 --devices 4 --chaos-fail-device 2:3:9
 
 Runs on the CUDA device unless ``--device cpu`` is given; ``--devices N``
 runs N ranks from this one process (rank r on cuda:(r mod device count)).
-The flags of the service's other parts (checkpoints, chaos injection,
-telemetry) are not ported yet and raise.
+The telemetry flags are not ported yet and raise.
 """
 
 import argparse
@@ -25,10 +34,6 @@ import time
 
 # flags of parts not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "checkpoint_dir": "queue 1 item 7b (service checkpoints)",
-    "checkpoint_every": "queue 1 item 7b (service checkpoints)",
-    "resume": "queue 1 item 7b (service checkpoints)",
-    "chaos_fail_device": "queue 1 item 7b (fault injection and the elastic mesh)",
     "trace": "queue 1 item 9 (observability)",
     "metrics": "queue 1 item 9 (observability)",
 }
@@ -79,16 +84,44 @@ def main(argv=None) -> None:
         help="re-route capacity/nonfinite evictions once to a VEGAS pool and retry "
         "max_iters requests at a loosened tolerance (results carry provenance)",
     )
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=None)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--chaos-fail-device", default=None)
+    ap.add_argument(
+        "--checkpoint-dir", default=None,
+        help="directory for service snapshots (engine state + slot map)",
+    )
+    ap.add_argument(
+        "--checkpoint-every", type=int, default=1,
+        help="snapshot every N admission ticks (needs --checkpoint-dir)",
+    )
+    ap.add_argument(
+        "--resume", action="store_true",
+        help="restore the latest snapshot in --checkpoint-dir and replay: "
+        "already-pulled requests are skipped, in-flight slots resume "
+        "mid-refinement (bit-identical for slots the crash did not touch)",
+    )
+    ap.add_argument(
+        "--chaos-fail-device", default=None, metavar="DEV:TICK[:RESTORE]",
+        help="inject a permanent device loss: rank DEV fails at iteration TICK "
+        "(optionally healing at iteration RESTORE, so the ranks regrow): "
+        "exercises the watchdog, evacuation and shrink",
+    )
+    ap.add_argument(
+        "--max-dispatch-retries", type=int, default=2,
+        help="transient dispatch faults retried (with backoff) before the "
+        "faulting rank is declared permanently lost",
+    )
+    ap.add_argument(
+        "--dispatch-timeout-s", type=float, default=None,
+        help="watchdog timeout per dispatch: a wedged rank surfaces as a "
+        "DispatchTimeout instead of hanging the serve loop",
+    )
     ap.add_argument("--trace", default=None)
     ap.add_argument("--metrics", default=None)
     args = ap.parse_args(argv)
     for name, item in NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             ap.error(f"--{name.replace('_', '-')} is not ported yet (ROADMAP {item})")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
 
     import numpy as np
     import torch
@@ -96,8 +129,14 @@ def main(argv=None) -> None:
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.core.integrands import get_param
     from repro_torch.core.ranks import cuda_devices
-    from repro_torch.service import BatchScheduler, GracefulScheduler, QuadRequest
+    from repro_torch.service import (
+        BatchScheduler,
+        GracefulScheduler,
+        QuadRequest,
+        ServiceCheckpointer,
+    )
     from repro_torch.service.batch_engine import estimate_state_bytes
+    from repro_torch.service.faults import DeviceDown
 
     family = get_param(args.family)
     cfg = QuadratureConfig(
@@ -163,10 +202,41 @@ def main(argv=None) -> None:
         f"(backend={cfg.resolved_backend()}, rebalance={cfg.rebalance}"
         f"{', graceful' if args.graceful else ''})"
     )
-    sched = (GracefulScheduler if args.graceful else BatchScheduler)(cfg, family, devices=devices)
+    serve_kwargs = {
+        "max_dispatch_retries": args.max_dispatch_retries,
+        "dispatch_timeout_s": args.dispatch_timeout_s,
+    }
+    if args.checkpoint_dir:
+        serve_kwargs["checkpointer"] = ServiceCheckpointer(args.checkpoint_dir)
+        serve_kwargs["checkpoint_every"] = args.checkpoint_every
+    if args.chaos_fail_device:
+        parts = args.chaos_fail_device.split(":")
+        if len(parts) not in (2, 3):
+            raise SystemExit(
+                f"--chaos-fail-device {args.chaos_fail_device!r}: expected "
+                "DEV:TICK or DEV:TICK:RESTORE"
+            )
+        dev, tick = int(parts[0]), int(parts[1])
+        restore = int(parts[2]) if len(parts) == 3 else None
+        if not 0 <= dev < len(devices):
+            raise SystemExit(
+                f"--chaos-fail-device device {dev} out of range for {len(devices)} device(s)"
+            )
+        if len(devices) < 2:
+            raise SystemExit(
+                "--chaos-fail-device needs --devices >= 2: a single-device "
+                "fleet has no surviving sub-mesh to evacuate onto"
+            )
+        serve_kwargs["fault_injector"] = DeviceDown(
+            device=dev, at_tick=tick, restore_at_tick=restore
+        )
+        print(f"chaos: device {dev} fails at iteration {tick}"
+              + ("" if restore is None else f", heals at iteration {restore}"))
+    sched = (GracefulScheduler if args.graceful else BatchScheduler)(
+        cfg, family, devices=devices, **serve_kwargs)
     t0 = time.perf_counter()
     n = 0
-    for res in sched.serve(requests):
+    for res in sched.serve(requests, resume=args.resume):
         n += 1
         line = res.summary()
         if args.validate:
@@ -177,7 +247,7 @@ def main(argv=None) -> None:
     if args.device == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    print(f"done: {len(requests)} problems in {dt:.2f}s ({len(requests) / dt:.1f} problems/sec)")
+    print(f"done: {n} problems in {dt:.2f}s ({n / dt:.1f} problems/sec)")
     print("stats: " + " ".join(f"{k}={v}" for k, v in sched.last_stats.items() if v))
 
 

@@ -54,7 +54,7 @@ from repro_torch.core.adaptive import AdaptiveResult, resolve_device
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand, get as get_integrand
 from repro_torch.core.integrands import get_param, parse_spec
-from repro_torch.core.ranks import Ranks, cuda_devices, rank_device, to_device
+from repro_torch.core.ranks import Ranks, copy_to, cuda_devices, rank_device, to_device
 from repro_torch.kernels.vegas_sums import vegas_sums
 from repro_torch.mc import grid as grid_lib
 from repro_torch.mc import stratified
@@ -469,6 +469,13 @@ class VegasBatchState:
     admit_seq: np.ndarray  # (B,) int64 admissions seen per slot (keys the draws)
 
 
+# the VegasState fields on the device and on the host, and the pool's host
+# arrays (snapshot layout of VegasBatchEngine.to_host)
+_MC_TENSORS = ("edges", "strat_w", "sum_wi", "sum_w", "sum_wi2")
+_MC_COUNTERS = ("stream", "it", "n_acc", "n_evals")
+_POOL_HOST = ("rel_tol", "abs_tol", "occupied", "done", "admit_seq")
+
+
 def _family(cfg: QuadratureConfig, family) -> ParamIntegrand:
     if family is None:
         family = cfg.integrand.partition(":")[0]
@@ -563,7 +570,7 @@ class VegasBatchEngine:
             )
         mc, fresh = state.mc, self._fresh
         seq = int(state.admit_seq[slot]) + 1
-        for k in ("edges", "strat_w", "sum_wi", "sum_w", "sum_wi2"):
+        for k in _MC_TENSORS:
             getattr(mc, k)[slot] = getattr(fresh, k)[0]
         mc.stream[slot] = stream_seed(self.cfg.mc_seed, slot, seq)
         mc.it[slot] = mc.n_acc[slot] = 0
@@ -584,6 +591,46 @@ class VegasBatchEngine:
         state.occupied[slot] = False
         state.done[slot] = False
         return state
+
+    # --- the pool on the host (snapshots) ------------------------------------
+
+    def host_shapes(self) -> dict[str, tuple]:
+        """Name -> shape of every array of :meth:`to_host`."""
+        B, d = self.n_slots, self.cfg.d
+        shapes = {f"mc/{k}": (B,) for k in _MC_TENSORS + _MC_COUNTERS}
+        shapes["mc/edges"] = (B, d, self.cfg.mc_bins + 1)
+        shapes["mc/strat_w"] = (B, mc_layout(self.cfg)[1])
+        shapes["theta"] = (B, self.n_theta)
+        shapes.update({k: (B,) for k in _POOL_HOST})
+        return shapes
+
+    def to_host(self, state: VegasBatchState) -> dict[str, np.ndarray]:
+        """The pool as slot-major host arrays with a leading ``B`` axis:
+        every field of the :class:`VegasState` as ``mc/<field>``, ``theta``
+        as ``(B, n_theta)``, the tolerances, the masks and ``admit_seq``
+        (it keys the draws: without it a resumed slot would draw other
+        samples).  Every array is a copy (see :meth:`BatchEngine.to_host`)."""
+        host = {f"mc/{k}": getattr(state.mc, k).to("cpu", copy=True).numpy()
+                for k in _MC_TENSORS}
+        host.update({f"mc/{k}": getattr(state.mc, k).copy() for k in _MC_COUNTERS})
+        host["theta"] = state.theta.T.to("cpu", copy=True).numpy()
+        host.update({k: getattr(state, k).copy() for k in _POOL_HOST})
+        return host
+
+    def place(self, host) -> VegasBatchState:
+        """The pool from :meth:`to_host`'s arrays, on this engine's device
+        (copies, as :meth:`BatchEngine.place`)."""
+        for k, shape in self.host_shapes().items():
+            if tuple(np.shape(host[k])) != shape:
+                raise ValueError(f"{k}: shape {np.shape(host[k])} != {shape}")
+        mc = VegasState(
+            **{k: copy_to(host[f"mc/{k}"], self.device) for k in _MC_TENSORS},
+            **{k: np.array(host[f"mc/{k}"]) for k in _MC_COUNTERS},
+        )
+        return VegasBatchState(
+            mc=mc, theta=copy_to(host["theta"].T, self.device),
+            **{k: np.array(host[k]) for k in _POOL_HOST},
+        )
 
     # --- one iteration -------------------------------------------------------
 
@@ -613,7 +660,7 @@ class VegasBatchEngine:
             theta[k] = cols[at:at + size, :, None]
             at += size
         new, m = self._iterate(sub, theta)
-        for k in ("edges", "strat_w", "sum_wi", "sum_w", "sum_wi2"):
+        for k in _MC_TENSORS:
             getattr(mc, k)[idx] = getattr(new, k)
         mc.it[live], mc.n_acc[live], mc.n_evals[live] = new.it, new.n_acc, new.n_evals
         got = read_metrics(m)

@@ -26,12 +26,7 @@ import numpy as np
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand
 from repro_torch.service.routing import GracefulScheduler
-from repro_torch.service.scheduler import (
-    RESILIENCE,
-    BatchScheduler,
-    QuadRequest,
-    QuadResult,
-)
+from repro_torch.service.scheduler import BatchScheduler, QuadRequest, QuadResult
 
 
 def _as_theta_list(thetas: Union[Sequence[Any], Any]) -> list[Any]:
@@ -64,17 +59,17 @@ def serve(
 ) -> Iterator[QuadResult]:
     """Stream results for an arbitrary request iterable (convergence order).
 
-    Extra keyword arguments (``on_tick``, and ``policy`` with ``graceful``)
-    pass through to the scheduler.  ``graceful`` serves through
-    :class:`GracefulScheduler`: ``capacity`` / ``nonfinite`` cubature
-    evictions are re-routed once to a VEGAS pool, ``max_iters`` requests
-    retried at a loosened tolerance.  ``resume`` belongs to the service's
-    checkpoints, not ported yet: it raises.
+    Extra keyword arguments (``checkpointer``, ``checkpoint_every``,
+    ``on_tick``, ``fault_injector``, ``max_dispatch_retries``,
+    ``dispatch_timeout_s``, ``retry_backoff_s``, and ``policy`` with
+    ``graceful``) pass through to the scheduler.  ``graceful`` serves
+    through :class:`GracefulScheduler`: ``capacity`` / ``nonfinite``
+    cubature evictions are re-routed once to a VEGAS pool, ``max_iters``
+    requests retried at a loosened tolerance.  ``resume=True`` restores the
+    newest service snapshot before serving (it needs a ``checkpointer``).
     """
-    if resume:
-        raise NotImplementedError(RESILIENCE)
     cls = GracefulScheduler if graceful else BatchScheduler
-    return cls(cfg, family, devices=devices, **scheduler_kwargs).serve(requests)
+    return cls(cfg, family, devices=devices, **scheduler_kwargs).serve(requests, resume=resume)
 
 
 def integrate_batch(

@@ -54,7 +54,7 @@ from repro_torch.core.adaptive import (
 from repro_torch.core.classify import classify, nonfinite_mask
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand, get_param
-from repro_torch.core.ranks import Ranks, cuda_devices, to_device
+from repro_torch.core.ranks import Ranks, copy_to, cuda_devices, to_device
 from repro_torch.core.redistribution import (
     exchange_pair_stats,
     make_schedule,
@@ -71,6 +71,9 @@ _READ = (
     "integral", "error", "budget", "n_active", "n_fin", "n_evals", "it",
     "overflowed", "nonfinite",
 )
+
+# the per-slot host arrays of a BatchState
+HOST_FIELDS = ("occupied", "done", "overflow_it", "counts")
 
 
 @dataclasses.dataclass
@@ -264,6 +267,65 @@ class BatchEngine:
         state.occupied[slot] = False
         state.done[slot] = False
         return state
+
+    # --- the fleet on the host (snapshots, rank-set changes) ------------------
+
+    def host_shapes(self) -> dict[str, tuple]:
+        """Name -> shape of every array of :meth:`to_host`."""
+        B, C, d = self.n_slots, self.cfg.capacity, self.cfg.d
+        rows = {"centers": (B, C, d), "halfw": (B, C, d)}
+        shapes = {f"regions/{k}": rows.get(k, (B, C) if k in ROWS else (B,)) for k in FIELDS}
+        shapes["theta"] = (B, self.n_theta)
+        shapes.update({k: (B,) for k in ("rel_tol", "abs_tol", *HOST_FIELDS)})
+        return shapes
+
+    def to_host(self, state: BatchState) -> dict[str, np.ndarray]:
+        """The fleet as slot-major host arrays with a leading ``B`` axis
+        (rank r's rows at ``[r S, (r + 1) S)``): every field of the region
+        stores as ``regions/<field>``, ``theta`` as ``(B, n_theta)``, the
+        tolerances and the host masks.
+
+        Every array is a copy: the engine updates the state in place, so a
+        snapshot must not share memory with it (on a CPU rank ``t.cpu()``
+        is ``t`` itself).
+        """
+        S = self.slots_per_rank
+
+        def gather(per_rank) -> np.ndarray:
+            out = torch.empty((self.n_slots, *per_rank[0].shape[1:]), dtype=per_rank[0].dtype)
+            for r, t in enumerate(per_rank):
+                out[r * S:(r + 1) * S].copy_(t)
+            return out.numpy()
+
+        host = {f"regions/{k}": gather([getattr(s, k) for s in state.regions]) for k in FIELDS}
+        host["theta"] = gather([t.T for t in state.theta])
+        host["rel_tol"] = gather(state.rel_tol)
+        host["abs_tol"] = gather(state.abs_tol)
+        for k in HOST_FIELDS:
+            host[k] = getattr(state, k).copy()
+        return host
+
+    def place(self, host) -> BatchState:
+        """Split :meth:`to_host`'s arrays over this engine's ranks, which may
+        be more or fewer than the ranks that wrote them (the JAX engine's
+        re-placement of a snapshot on the current mesh).  Copies: the host
+        arrays stay as they are while the engine updates the state."""
+        for k, shape in self.host_shapes().items():
+            if tuple(np.shape(host[k])) != shape:
+                raise ValueError(f"{k}: shape {np.shape(host[k])} != {shape}")
+        S = self.slots_per_rank
+        regions, theta, rel_tol, abs_tol = [], [], [], []
+        for r, dev in enumerate(self.ranks.devices):
+            sl = slice(r * S, (r + 1) * S)
+            regions.append(region_store.RegionState(
+                **{k: copy_to(host[f"regions/{k}"][sl], dev) for k in FIELDS}))
+            theta.append(copy_to(host["theta"][sl].T, dev))
+            rel_tol.append(copy_to(host["rel_tol"][sl], dev))
+            abs_tol.append(copy_to(host["abs_tol"][sl], dev))
+        return BatchState(
+            regions=regions, theta=theta, rel_tol=rel_tol, abs_tol=abs_tol,
+            **{k: np.array(host[k]) for k in HOST_FIELDS},
+        )
 
     # --- one iteration ---------------------------------------------------------
 

@@ -17,7 +17,8 @@ another engine pool can still produce a converged estimate:
 
 Every retry consumes the request's attempt budget; the final
 :class:`~repro_torch.service.scheduler.QuadResult` carries the provenance
-(``backend``, ``attempts``, ``retried_from``).
+(``backend``, ``attempts``, ``retried_from``, and ``evacuated`` from a rank
+loss in an earlier attempt).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Iterable, Iterator, Optional, Sequence, Union
 
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand
-from repro_torch.service.scheduler import RESILIENCE, BatchScheduler, QuadRequest, QuadResult
+from repro_torch.service.scheduler import BatchScheduler, QuadRequest, QuadResult
 from repro_torch.service.stats import ServiceStats
 
 
@@ -67,7 +68,11 @@ class GracefulScheduler:
 
     ``last_stats`` sums the :class:`ServiceStats` of every pool field by
     field, plus ``reroutes`` (fallback re-admissions of both kinds).
-    Keyword arguments (``on_tick``) go to the primary pool only.
+    Keyword arguments (``on_tick``, the checkpointer, and the rank-loss
+    arguments ``fault_injector``, ``max_dispatch_retries``,
+    ``dispatch_timeout_s``) go to the primary pool only: the VEGAS pool has
+    one rank, and a retry pass after a shrink runs on the primary's
+    surviving ranks.
     """
 
     def __init__(
@@ -102,8 +107,6 @@ class GracefulScheduler:
     def serve(
         self, requests: Iterable[QuadRequest], resume: bool = False
     ) -> Iterator[QuadResult]:
-        if resume:
-            raise NotImplementedError(RESILIENCE)
         policy = self.policy
         stats = ServiceStats()
         self._stats = stats
@@ -115,17 +118,20 @@ class GracefulScheduler:
                 yield req
 
         def retried(results, prior):
+            # a request evacuated off a lost rank in its prior attempt keeps
+            # that provenance through the retry
             for res in results:
                 yield dataclasses.replace(
                     res,
                     attempts=prior[res.req_id].attempts + 1,
                     retried_from=prior[res.req_id].status,
+                    evacuated=res.evacuated or prior[res.req_id].evacuated,
                 )
 
         primary_backend = self.primary.engine.backend
         reroute: list[QuadResult] = []  # cubature -> vegas pool
         relax: list[QuadResult] = []  # same backend, loosened tolerances
-        for res in self.primary.serve(recording(requests)):
+        for res in self.primary.serve(recording(requests), resume=resume):
             if policy.max_attempts > 1 and res.status in policy.relax_statuses:
                 relax.append(res)
             elif (

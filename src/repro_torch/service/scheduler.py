@@ -31,17 +31,26 @@ The scheduler fronts two engine pools behind one slot protocol: the
 cubature :class:`BatchEngine` and the Monte Carlo
 :class:`~repro_torch.mc.engine.VegasBatchEngine` (``backend="auto"`` picks
 by dimension).  Fallback re-routing of degraded requests lives in
-:mod:`repro_torch.service.routing`.
+:mod:`repro_torch.service.routing`, service checkpoints in
+:mod:`repro_torch.service.checkpoint`.
 
-Not ported yet (ROADMAP queue 1 item 7b): service checkpoints and resume,
-fault injection, the dispatch watchdog and the elastic mesh; their
-arguments raise :class:`NotImplementedError`.
+The scheduler is elastic in its rank set: every dispatch runs under a host
+watchdog (:class:`DispatchTimeout` / :class:`DeviceLostError`, bounded
+retries with exponential backoff), and a rank declared lost is evacuated
+(slots that a snapshot covers rewind to it, the others' requests go back
+to the admission queue with provenance) before the engine is rebuilt on the
+largest set of surviving ranks, and regrown once the rank heals.  A rank is
+the JAX package's mesh device: one host process drives every rank
+(:mod:`repro_torch.core.ranks`), and a lost rank is one that the fault
+injector marks down.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+from collections import deque
 from typing import Any, Callable, Iterable, Iterator, Optional, Sequence, Union
 
 import numpy as np
@@ -52,10 +61,97 @@ from repro_torch.mc.engine import VegasBatchEngine
 from repro_torch.service.batch_engine import BatchEngine, BatchState
 from repro_torch.service.stats import ServiceStats
 
-RESILIENCE = (
-    "service checkpoints and resume, fault injection and the dispatch "
-    "watchdog are not ported yet (ROADMAP queue 1 item 7b)"
-)
+
+
+class DeviceLostError(RuntimeError):
+    """A rank failed for good (retries exhausted, or nowhere to evacuate).
+
+    ``device`` is the rank's index among the engine's *original* ranks, or
+    ``None`` when the watchdog could not attribute the fault to a rank.
+    Raised by injectors (:class:`repro_torch.service.faults.DeviceDown`) to
+    simulate the loss, and by the scheduler only when recovery is
+    impossible: a one-rank engine has nowhere to evacuate to.
+    """
+
+    def __init__(self, device: Optional[int], message: str):
+        super().__init__(message)
+        self.device = device
+
+
+class DispatchTimeout(RuntimeError):
+    """A dispatch outlasted the watchdog's ``dispatch_timeout_s``.
+
+    It names no rank (a hang looks the same from the host whichever rank
+    wedged), so the scheduler asks the injector's ``healthy`` probe, or
+    gives up, to pick the rank to declare lost.
+    """
+
+
+class _Attempt:
+    """One dispatch attempt's claim on the live fleet state.
+
+    The port's engines update the state in place, so an attempt that the
+    watchdog gave up on must never touch it: its thread could wake in the
+    middle of the retried dispatch.  The worker claims the state before it
+    touches it; the watchdog revokes the attempt at its timeout.  Whichever
+    comes first wins, under one lock.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._state = "pending"
+
+    def claim(self) -> bool:
+        with self._lock:
+            if self._state == "revoked":
+                return False
+            self._state = "claimed"
+            return True
+
+    def revoke(self) -> bool:
+        with self._lock:
+            if self._state == "claimed":
+                return False
+            self._state = "revoked"
+            return True
+
+
+def _call_with_timeout(fn: Callable[[_Attempt], Any], timeout_s: Optional[float]):
+    """Run ``fn(attempt)`` under a wall-clock watchdog.
+
+    With a timeout the call runs on a daemon thread and a ``join`` bounds
+    the wait: a wedged attempt is revoked and raises :class:`DispatchTimeout`
+    on the host, and its thread is abandoned (it returns without touching
+    the state when it wakes).  An attempt that already claimed the state
+    when the timeout struck cannot be abandoned or retried, since it is
+    changing the live state: that raises a plain ``RuntimeError``.
+    Exceptions of ``fn`` itself propagate unchanged.
+    """
+    attempt = _Attempt()
+    if timeout_s is None:
+        return fn(attempt)
+    box: dict = {}
+
+    def target():
+        try:
+            box["value"] = fn(attempt)
+        except BaseException as err:  # noqa: BLE001 - re-raised on the host
+            box["error"] = err
+
+    worker = threading.Thread(target=target, daemon=True, name="dispatch-watchdog")
+    worker.start()
+    worker.join(timeout_s)
+    if worker.is_alive():
+        if attempt.revoke():
+            raise DispatchTimeout(f"dispatch still running after {timeout_s}s watchdog")
+        raise RuntimeError(
+            f"dispatch still running after {timeout_s}s watchdog, with the engine "
+            "already updating the fleet state in place: it can be neither "
+            "abandoned nor retried"
+        )
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
 
 
 def make_engine(
@@ -99,9 +195,13 @@ class QuadResult:
     the engine pool that produced this estimate, the admissions the request
     consumed in total, and, for a re-routed or retried request, the
     terminal status of the attempt that triggered the retry (see
-    :class:`repro_torch.service.routing.GracefulScheduler`).  The JAX
-    package's evacuation provenance (``evacuated``) comes with the elastic
-    mesh (ROADMAP queue 1 item 7b).
+    :class:`repro_torch.service.routing.GracefulScheduler`).  ``evacuated``
+    records rank-loss provenance: ``"snapshot"`` when the request's slot was
+    recovered from the newest service snapshot after its rank was lost (its
+    trajectory rewound and replayed, the same bits), ``"readmit"`` when no
+    snapshot covered it and the request was admitted again from scratch
+    (``attempts`` grows and ``retried_from`` is ``"device_lost"``), ``None``
+    when no rank loss touched it.
     """
 
     req_id: int
@@ -115,12 +215,14 @@ class QuadResult:
     backend: str = "cubature"  # engine pool that produced this estimate
     attempts: int = 1  # admissions consumed (1 = first attempt)
     retried_from: Optional[str] = None  # prior attempt's terminal status
+    evacuated: Optional[str] = None  # rank-loss recovery: snapshot | readmit
 
     def summary(self) -> str:
         via = f" via={self.backend}" if self.attempts > 1 else ""
+        evac = f" evac={self.evacuated}" if self.evacuated else ""
         return (
             f"req={self.req_id} I={self.integral:.15e} eps={self.error:.3e} "
-            f"[{self.status}] iters={self.iterations} evals={self.n_evals:.3g}{via}"
+            f"[{self.status}] iters={self.iterations} evals={self.n_evals:.3g}{via}{evac}"
         )
 
 
@@ -128,7 +230,8 @@ def encode_request(req: QuadRequest) -> dict:
     """JSON-able form of a request (theta leaves as float64 lists).
 
     ``json`` writes a float64 through ``repr``, which round-trips exactly,
-    so decoding an encoding gives the identical problem.
+    so decoding an encoding gives the identical problem: the resume parity
+    of service checkpoints rests on it.
     """
     return {
         "req_id": int(req.req_id),
@@ -165,11 +268,33 @@ class BatchScheduler:
     run's :class:`~repro_torch.service.stats.ServiceStats`: ``iterations``
     (fleet iterations), ``dispatches`` (engine ``run`` calls),
     ``admissions``, ``collections``, ``migrations`` (problems moved between
-    ranks), ``quarantines`` (slots collected ``nonfinite``) and
-    ``deadlines`` (slots evicted on an expired SLO).
+    ranks), ``quarantines`` (slots collected ``nonfinite``), ``deadlines``
+    (slots evicted on an expired SLO), ``checkpoints``, and the rank-set
+    counters ``dispatch_retries``, ``evacuations``, ``mesh_shrinks`` and
+    ``mesh_regrows``.
 
-    ``on_tick(it, state, slot_req)`` is a host hook called at every dispatch
-    boundary; it may return a replacement state or ``None``.
+    ``checkpointer`` (a :class:`~repro_torch.service.checkpoint.ServiceCheckpointer`)
+    snapshots the engine state and the slot -> request map every
+    ``checkpoint_every`` admission ticks; ``serve(resume=True)`` restores
+    the newest snapshot and replays from it, with the same bits for every
+    slot the crash did not touch.  ``on_tick(it, state, slot_req)`` is a
+    host hook called at every dispatch boundary (fault injection,
+    monitoring); it may return a replacement state or ``None``.
+
+    **Rank loss.**  Every dispatch runs under a host watchdog.  A
+    :class:`DeviceLostError` from ``fault_injector``'s pre-dispatch hook
+    (see :class:`repro_torch.service.faults.DeviceDown`), or a
+    :class:`DispatchTimeout` past ``dispatch_timeout_s``, is retried up to
+    ``max_dispatch_retries`` times with exponential backoff
+    (``retry_backoff_s * 2**attempt``): a transient fault leaves the run
+    bit-identical to a fault-free one.  When the retries run out the rank
+    is declared lost: its slots are evacuated (from the newest snapshot
+    where it covers them, else their requests are admitted again with
+    ``attempts`` / ``retried_from`` / ``evacuated`` provenance), the engine
+    is rebuilt on the largest set of surviving ranks whose size divides
+    ``batch_slots``, and the fleet serves on.  A later admission tick
+    regrows the rank set once the injector reports the rank healthy.  All
+    of it happens between dispatches.
     """
 
     def __init__(
@@ -182,15 +307,10 @@ class BatchScheduler:
         checkpoint_every: int = 0,
         on_tick: Optional[Callable] = None,
         fault_injector=None,
+        max_dispatch_retries: int = 2,
         dispatch_timeout_s: Optional[float] = None,
+        retry_backoff_s: float = 0.1,
     ):
-        if (
-            checkpointer is not None
-            or checkpoint_every
-            or fault_injector is not None
-            or dispatch_timeout_s is not None
-        ):
-            raise NotImplementedError(RESILIENCE)
         if engine is not None:
             if devices is not None:
                 raise ValueError(
@@ -201,13 +321,75 @@ class BatchScheduler:
         else:
             self.engine = make_engine(cfg, family, devices=devices)
         self.cfg = self.engine.cfg
+        if checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
+        if checkpoint_every and checkpointer is None:
+            raise ValueError("checkpoint_every > 0 requires a checkpointer")
+        if max_dispatch_retries < 0:
+            raise ValueError(f"max_dispatch_retries must be >= 0, got {max_dispatch_retries}")
+        if dispatch_timeout_s is not None and dispatch_timeout_s <= 0:
+            raise ValueError(f"dispatch_timeout_s must be positive, got {dispatch_timeout_s}")
+        self.checkpointer = checkpointer
+        self.checkpoint_every = checkpoint_every
         self.on_tick = on_tick
+        self.fault_injector = fault_injector
+        self.max_dispatch_retries = max_dispatch_retries
+        self.dispatch_timeout_s = dispatch_timeout_s
+        self.retry_backoff_s = retry_backoff_s
         self._stats = ServiceStats()
+        # The rank set.  Ranks are named by their index among the engine's
+        # ORIGINAL ranks for the scheduler's lifetime: the injector's rank
+        # ids and the regrow target speak this namespace.  The VEGAS pool
+        # (one rank) is not elastic: _all_devices stays None and a lost
+        # rank is fatal.
+        ranks = getattr(self.engine, "ranks", None)
+        self._all_devices = list(ranks.devices) if ranks is not None else None
+        self._current_devs = list(range(self.engine.n_ranks))
+        self._failed: set = set()
 
     @property
     def last_stats(self) -> dict:
         """Dict view of the latest run's :class:`ServiceStats`."""
         return self._stats.as_dict()
+
+    # --- the elastic rank set --------------------------------------------------
+
+    def _healthy_mesh(self) -> list:
+        """The largest set of healthy ranks whose size divides the slot
+        count, as original rank indices in order.
+
+        ``batch_slots % n_ranks == 0`` is the engine's block placement, so
+        losing one rank of 4 with 8 slots shrinks to 2, idling a healthy
+        rank until a regrow.
+        """
+        healthy = [r for r in range(len(self._all_devices)) if r not in self._failed]
+        if not healthy:
+            raise DeviceLostError(None, "every device in the mesh has failed")
+        B = self.engine.n_slots
+        m = max(k for k in range(1, len(healthy) + 1) if B % k == 0)
+        return healthy[:m]
+
+    def _rebuild_engine(self, dev_indices: list):
+        """A new engine on the given original ranks' devices (its migration
+        schedule follows the new rank count)."""
+        devices = [self._all_devices[i] for i in dev_indices]
+        self.engine = make_engine(self.cfg, self.engine.family, devices=devices)
+        self._current_devs = list(dev_indices)
+        return self.engine
+
+    def _attribute_fault(self, err: Exception, it: int) -> Optional[int]:
+        """The original rank a dispatch fault is blamed on: the error's own,
+        else the first current rank that the injector's ``healthy`` probe
+        reports down."""
+        dev = getattr(err, "device", None)
+        if dev is not None:
+            return int(dev)
+        probe = getattr(self.fault_injector, "healthy", None)
+        if probe is not None:
+            for r in self._current_devs:
+                if not probe(r, it):
+                    return r
+        return None
 
     def serve(
         self, requests: Iterable[QuadRequest], resume: bool = False
@@ -217,61 +399,95 @@ class BatchScheduler:
         ``requests`` may be any iterable, a generator included: it is pulled
         from only when a slot is free, so an unbounded stream backpressures.
         Every request yields exactly one result.
+
+        With ``resume=True`` the newest service snapshot is restored first:
+        in-flight slots resume mid-refinement, requests the crashed run had
+        already pulled are skipped from ``requests`` (the caller supplies
+        the same stream again), and requests that finished after the
+        snapshot are served again, with the same bits as the crashed run
+        yielded.
         """
-        if resume:
-            raise NotImplementedError(RESILIENCE)
         engine = self.engine
         cfg = self.cfg
         B = engine.n_slots
-        S = engine.slots_per_rank
         pending = iter(requests)
         exhausted = False  # the iterator signalled StopIteration
         slot_req: list[Optional[QuadRequest]] = [None] * B
         slot_admitted = np.zeros(B, np.int64)
         slot_wall = [0.0] * B  # admission wall clock, for deadline_s
+        pulled_ids: set[int] = set()
+        skip_ids: set[int] = set()
+        # Requests bumped off a lost rank wait in retry_queue (served before
+        # the stream, in order), and the evac_* maps carry their provenance
+        # into their QuadResult.
+        retry_queue: deque = deque()
+        evac_attempts: dict = {}  # req_id -> extra admissions consumed
+        evac_from: dict = {}  # req_id -> status that triggered the retry
+        evac_kind: dict = {}  # req_id -> "snapshot" | "readmit"
         stats = ServiceStats()
         self._stats = stats
-
-        state = engine.init()
         it = 0
+        ticks = 0  # admission passes completed (the checkpoint cadence's unit)
+
+        if resume:
+            if self.checkpointer is None:
+                raise ValueError("resume=True requires a checkpointer")
+            state, meta = self.checkpointer.restore(engine)
+            it = int(meta["it"])
+            ticks = int(meta["ticks"])
+            stats.merge(ServiceStats.from_dict(meta["stats"]))
+            pulled_ids = set(meta["pulled_ids"])
+            skip_ids = set(pulled_ids)
+            for entry in meta["slots"]:
+                slot = int(entry["slot"])
+                slot_req[slot] = decode_request(entry["req"], engine.theta_template)
+                slot_admitted[slot] = int(entry["admitted_at"])
+                slot_wall[slot] = time.monotonic()  # wall deadlines restart
+        else:
+            state = engine.init()
 
         def pull() -> Optional[QuadRequest]:
             # Requests are pulled only from admission passes, never
             # speculatively, so a generator that derives its next request
             # from the results so far sees the per-iteration loop's pull
-            # points.
+            # points.  On resume the requests the crashed run had pulled are
+            # skipped; evacuated requests come first.
             nonlocal exhausted
+            if retry_queue:
+                return retry_queue.popleft()
             if exhausted:
                 return None
             req = next(pending, None)
+            while req is not None and req.req_id in skip_ids:
+                req = next(pending, None)
             if req is None:
                 exhausted = True
+            else:
+                pulled_ids.add(req.req_id)
             return req
 
         def admission_order() -> list[int]:
             """Free slots, least-loaded rank first (plain slot order on one
             rank)."""
             free = [s for s in range(B) if slot_req[s] is None]
-            if engine.n_ranks == 1:
+            n, S = engine.n_ranks, engine.slots_per_rank
+            if n == 1:
                 return free
-            load = [0] * engine.n_ranks
+            load = [0] * n
             for s in range(B):
                 if slot_req[s] is not None:
                     load[s // S] += 1
             # admitting onto a rank raises its load for the next pick, so a
             # burst of admissions round-robins across the drained ranks
             order: list[int] = []
-            free_per_rank = [[s for s in free if s // S == r] for r in range(engine.n_ranks)]
+            free_per_rank = [[s for s in free if s // S == r] for r in range(n)]
             for _ in free:
-                rank = min(
-                    (r for r in range(engine.n_ranks) if free_per_rank[r]),
-                    key=lambda r: (load[r], r),
-                )
+                rank = min((r for r in range(n) if free_per_rank[r]), key=lambda r: (load[r], r))
                 order.append(free_per_rank[rank].pop(0))
                 load[rank] += 1
             return order
 
-        def admit_free_slots(state: BatchState) -> BatchState:
+        def admit_free_slots(state):
             for slot in admission_order():
                 req = pull()
                 if req is None:
@@ -281,6 +497,51 @@ class BatchScheduler:
                 slot_admitted[slot] = it
                 slot_wall[slot] = time.monotonic()
                 stats.add("admissions")
+            return state
+
+        def admission_tick(state):
+            """One admission pass, with the regrow before it and the
+            checkpoint cadence after it.
+
+            The snapshot follows the admissions, so a resumed run goes on
+            from a tick boundary: its next host decision is the next
+            dispatch, as in the original run.  A lost rank that the
+            injector reports healthy again rejoins before the admissions,
+            so they spread over the regrown rank set.
+            """
+            nonlocal engine, ticks
+            probe = getattr(self.fault_injector, "healthy", None)
+            if self._failed and probe is not None:
+                restored = [r for r in sorted(self._failed) if probe(r, it)]
+                if restored:
+                    self._failed.difference_update(restored)
+                    target = self._healthy_mesh()
+                    if len(target) > engine.n_ranks:
+                        host = engine.to_host(state)
+                        engine = self._rebuild_engine(target)
+                        state = engine.place(host)
+                        stats.add("mesh_regrows")
+            state = admit_free_slots(state)
+            ticks += 1
+            if (
+                self.checkpointer is not None
+                and self.checkpoint_every > 0
+                and ticks % self.checkpoint_every == 0
+            ):
+                meta = {
+                    "it": it,
+                    "ticks": ticks,
+                    "stats": stats.as_dict(),
+                    "pulled_ids": sorted(pulled_ids),
+                    "slots": [
+                        {"slot": s, "req": encode_request(slot_req[s]),
+                         "admitted_at": int(slot_admitted[s])}
+                        for s in range(B)
+                        if slot_req[s] is not None
+                    ],
+                }
+                self.checkpointer.save(it, engine.to_host(state), meta)
+                stats.add("checkpoints")
             return state
 
         def apply_moves(rows: np.ndarray) -> None:
@@ -301,6 +562,64 @@ class BatchScheduler:
                 slot_req[src] = None
             stats.add("migrations", len(valid))
 
+        def evacuate_and_shrink(state, dev: int):
+            """Recover the lost rank's slots and rebuild on the survivors.
+
+            Slots that the newest readable snapshot covers rewind to it row
+            for row (their replay is deterministic, so the final values keep
+            their bits); the others lose their progress, and their requests
+            go back to the queue with ``attempts`` / ``retried_from`` /
+            ``evacuated`` provenance.  The surviving ranks' slots carry over
+            untouched: a slot's trajectory does not depend on its rank.
+            """
+            nonlocal engine
+            if self._all_devices is None or engine.n_ranks <= 1:
+                raise DeviceLostError(
+                    dev, f"device {dev} lost permanently with no surviving sub-mesh to evacuate to"
+                )
+            S = engine.slots_per_rank
+            local = self._current_devs.index(dev)
+            self._failed.add(dev)
+            target = self._healthy_mesh()
+            # The fault fired at the dispatch boundary, before the engine
+            # touched the state, so it is intact.  A real loss would lose
+            # the lost rank's rows: exactly the rows rewound or released
+            # below.
+            host = engine.to_host(state)
+            snap = snap_meta = None
+            if self.checkpointer is not None:
+                try:
+                    snap, snap_meta, _ = self.checkpointer.restore_host(host)
+                except FileNotFoundError:
+                    pass
+            snap_slots = {}
+            if snap_meta is not None:
+                snap_slots = {int(e["slot"]): int(e["req"]["req_id"]) for e in snap_meta["slots"]}
+            for s in range(local * S, (local + 1) * S):
+                req = slot_req[s]
+                if req is None:
+                    continue
+                if snap is not None and snap_slots.get(s) == req.req_id:
+                    # rewind the slot to the snapshot row for row (masks
+                    # included); the replay derives the lost refinement again
+                    for k, v in host.items():
+                        v[s] = snap[k][s]
+                    evac_kind[req.req_id] = "snapshot"
+                    slot_wall[s] = time.monotonic()  # the wall SLO restarts
+                else:
+                    host["occupied"][s] = False
+                    host["done"][s] = False
+                    retry_queue.append(req)
+                    evac_attempts[req.req_id] = evac_attempts.get(req.req_id, 0) + 1
+                    evac_from[req.req_id] = "device_lost"
+                    evac_kind[req.req_id] = "readmit"
+                    slot_req[s] = None
+                stats.add("evacuations")
+            engine = self._rebuild_engine(target)
+            state = engine.place(host)
+            stats.add("mesh_shrinks")
+            return state
+
         def result(req, slot, ms, k, status) -> QuadResult:
             return QuadResult(
                 req_id=req.req_id,
@@ -312,18 +631,68 @@ class BatchScheduler:
                 admitted_at=int(slot_admitted[slot]),
                 finished_at=it,
                 backend=engine.backend,
+                attempts=1 + evac_attempts.pop(req.req_id, 0),
+                retried_from=evac_from.pop(req.req_id, None),
+                evacuated=evac_kind.pop(req.req_id, None),
             )
 
-        state = admit_free_slots(state)
-        while any(r is not None for r in slot_req):
+        if not resume:
+            # on resume the snapshot was taken at a tick boundary, right
+            # after its admissions: the next host decision is the dispatch
+            state = admission_tick(state)
+        while any(r is not None for r in slot_req) or retry_queue:
+            if not any(r is not None for r in slot_req):
+                # an evacuation emptied the fleet with re-admissions
+                # pending: refill before dispatching
+                state = admission_tick(state)
+                continue
             # A dispatch may not run past the next admit tick while an
             # admission may be pending (a free slot and a stream not yet known
             # to be exhausted): the tick is a host decision.  Once the stream
             # is exhausted, full-length dispatches resume for the drain.
             max_steps = cfg.sync_every
-            if not exhausted and any(r is None for r in slot_req):
+            if (not exhausted or retry_queue) and any(r is None for r in slot_req):
                 max_steps = min(max_steps, cfg.admit_every - it % cfg.admit_every)
-            state, ms, executed, moved = engine.run(state, max_steps, it)
+
+            def attempt_dispatch(attempt: _Attempt):
+                # the injector fires first: an injected loss surfaces before
+                # the engine touches the state, so a retry or an evacuation
+                # reads it intact.  An attempt that the watchdog gave up on
+                # returns here without touching it.
+                if self.fault_injector is not None:
+                    self.fault_injector.pre_dispatch(it, tuple(self._current_devs))
+                if not attempt.claim():
+                    return None
+                return engine.run(state, max_steps, it)
+
+            attempt = 0
+            evacuated = False
+            while True:
+                try:
+                    state, ms, executed, moved = _call_with_timeout(
+                        attempt_dispatch, self.dispatch_timeout_s
+                    )
+                    break
+                except (DeviceLostError, DispatchTimeout) as err:
+                    dev = self._attribute_fault(err, it)
+                    if attempt < self.max_dispatch_retries:
+                        # transient until proven permanent: bounded retries
+                        # with exponential backoff
+                        attempt += 1
+                        stats.add("dispatch_retries")
+                        if self.retry_backoff_s > 0:
+                            time.sleep(self.retry_backoff_s * 2 ** (attempt - 1))
+                        continue
+                    if dev is None:
+                        raise  # unattributable: nothing to evacuate
+                    state = evacuate_and_shrink(state, dev)
+                    evacuated = True
+                    break
+            if evacuated:
+                # no iteration ran: dispatch the same ``it`` again on the
+                # smaller rank set (re-admissions wait for their admit tick,
+                # as any queued request does)
+                continue
             k = int(np.sum(executed))
             assert k >= 1, "dispatch executed no iterations"
             stats.add("dispatches")
@@ -384,7 +753,7 @@ class BatchScheduler:
             # Admit on the configured cadence, but never leave the fleet idle
             # with work still queued.
             if it % cfg.admit_every == 0 or all(r is None for r in slot_req):
-                state = admit_free_slots(state)
+                state = admission_tick(state)
             if self.on_tick is not None:
                 replacement = self.on_tick(it, state, list(slot_req))
                 if replacement is not None:

@@ -18,9 +18,7 @@ class ServiceStats:
 
     All counters are integers; ``as_dict`` is the view exposed as
     ``BatchScheduler.last_stats``.  The fields are the JAX package's, so
-    that the two packages' stats compare; the port's scheduler leaves the
-    counters of the parts it does not have yet (checkpoints, re-routing,
-    the dispatch watchdog and the elastic mesh) at 0.
+    that the two packages' stats compare.
     """
 
     iterations: int = 0  # fleet iterations executed (all slots advance together)

@@ -309,32 +309,9 @@ def test_run_stops_at_the_first_done_flip():
     assert not ms["done"][: k - 1].any()
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(checkpointer=object()),
-        dict(checkpoint_every=1),
-        dict(fault_injector=object()),
-        dict(dispatch_timeout_s=1.0),
-    ],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_resilience_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        BatchScheduler(QuadratureConfig(**_fields()), devices=CPU, **kw)
-
-
-def test_resume_graceful_and_vegas_raise():
-    """Resume (service checkpoints) still raises, with or without graceful
-    re-routing; the VEGAS pool raises only when asked for several ranks."""
+def test_vegas_pool_is_single_rank():
+    """The VEGAS pool raises only when asked for several ranks."""
     cfg = QuadratureConfig(**_fields())
-    sched = BatchScheduler(cfg, devices=CPU)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        next(iter(sched.serve([], resume=True)))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        serve(cfg, [], devices=CPU, resume=True)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        serve(cfg, [], devices=CPU, graceful=True, resume=True)
     with pytest.raises(ValueError, match="single-device"):
         make_engine(dataclasses.replace(cfg, backend="vegas"), devices=CPU * 2)
     with pytest.raises(ValueError, match="single-device"):
@@ -366,8 +343,7 @@ def test_cli_serves_on_cpu_ranks():
 
 
 @pytest.mark.parametrize(
-    "args", [["--resume"], ["--trace", "t.json"], ["--checkpoint-dir", "ck"],
-             ["--chaos-fail-device", "1:3"], ["--metrics", "m"]],
+    "args", [["--trace", "t.json"], ["--metrics", "m"]],
     ids=lambda a: a[0],
 )
 def test_cli_flags_of_other_slices_fail_clearly(args):
