@@ -84,7 +84,26 @@ Phases, each of which passes or raises (a failure exits nonzero):
    (repro_torch.service.chaos_selftest) at 1, 2 and 4 ranks on the card,
    whose nan_injection is where the NaN sentinel goes through the CUDA GM
    path.  Snapshot bytes, save and restore seconds and the walls are
-   logged.
+   logged;
+13. the telemetry recorder (repro_torch.telemetry) and the Gauss-Kronrod
+   rule in the service: (a) every driver with a recorder against its
+   recorder-off twin, at the sizes above: integrate and integrate_device
+   on phase 4's f4 and genz_gaussian cases, phase 6's four ring ranks on
+   f6, phase 10's VEGAS genz_gaussian d=15, phase 9's fleet on one rank
+   and on four.  Each pair gives the same bits, host syncs and number of
+   synchronising calls (torch.cuda.set_sync_debug_mode("warn")); each
+   recorded Chrome trace passes the checker (with four rank lanes and a
+   service.migrate flow on four ranks); the dist.work_imb gauges average
+   to mean_imbalance() within 1e-12; the service.dispatch_wall_s samples
+   number the dispatches; the walls on and off are logged.  (b) 64
+   genz_gaussian requests at d=3 (thetas from default_rng(0)), rel_tol
+   1e-8, rule gauss_kronrod, 16 slots of 2^14 regions, on 1 and on 4
+   ranks: all converged, every result bit-equal to integrate() with GK on
+   its theta on the card; wall, requests/s and peak memory logged.
+   (c) the CLIs in process: launch.integrate with --trace, --metrics,
+   --telemetry-summary and --strict, launch.serve_quad on 4 ranks with
+   rank 2 lost at iteration 3 and back at 9, --trace, --metrics and
+   --strict; both exit 0 and their files pass the telemetry checker.
 
 Last, the sums kernel timed at gm_perf.py's SUMS_TIMED shapes (phase 10's
 d=15 and f6 cases, phase 11a's pool): per call, its chunk and combine
@@ -1117,6 +1136,205 @@ def phase_resilience(phase9, smi):
     return gm, mc
 
 
+# --- the recorder and the GK service (phase 13) --------------------------------
+
+
+def _sync_counted(fn):
+    """``(fn(), wall s, synchronising calls)``: the calls are counted by
+    ``torch.cuda.set_sync_debug_mode("warn")`` (not its one-time notice on
+    first use), the same for either run of a pair, so the walls compare."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, wall = _timed(fn)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, wall, sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _trace_problems(events, name, **kw):
+    """The checker's findings on the Chrome trace of ``events`` (written under
+    the gitignored build/ and removed)."""
+    from repro_torch.telemetry.check import check_trace
+    from repro_torch.telemetry.trace import write_chrome_trace
+
+    path = os.path.join(HERE, "build", f"trace_{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_chrome_trace(path, events)
+    try:
+        return check_trace(path, **kw)
+    finally:
+        os.remove(path)
+
+
+def phase_telemetry(smi):
+    """Phase 13a: every driver with a recorder against its recorder-off twin
+    at phase 4-10's sizes: the same bits, host syncs and synchronising
+    calls; a trace that passes the checker; the walls on and off."""
+    from repro_torch.core import adaptive
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.distributed import integrate_distributed
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels import vegas_sums as vs
+    from repro_torch.launch.gm_perf import SERVICE, service_requests
+    from repro_torch.mc import integrate_vegas
+    from repro_torch.service import BatchScheduler
+    from repro_torch.service.sharded_selftest import tuples
+    from repro_torch.telemetry import NULL, MemorySink, Recorder, loadview
+
+    def bits(res):
+        return (res.status, res.iterations, res.n_evals, res.integral.hex(), res.error.hex(),
+                res.host_syncs)
+
+    def fleet(devices):
+        def run(rec):
+            sched = BatchScheduler(QuadratureConfig(**SERVICE), devices=devices, recorder=rec)
+            return tuples(sched.serve(service_requests())), sched.last_stats
+        return run
+
+    main = {c[0].split(":")[0]: c for c in MAIN_CASES}
+    cases = []
+    for name in ("f4", "genz_gaussian"):
+        integrand, d, rel_tol, capacity = main[name]
+        cfg = QuadratureConfig(d=d, integrand=integrand, rel_tol=rel_tol, capacity=capacity)
+        for driver in ("integrate", "integrate_device"):
+            fn = getattr(adaptive, driver)
+            cases.append((f"{driver} {name} d={d}", bits, lambda rec, fn=fn, cfg=cfg:
+                          fn(cfg, device="cuda", recorder=rec), {}))
+    dist_cfg = QuadratureConfig(d=5, integrand="f6", rel_tol=1e-4, capacity=DIST_CAPACITY)
+    cases.append(("distributed f6 d=5, 4 ranks ring", bits, lambda rec: integrate_distributed(
+        dist_cfg, devices=cuda_devices(DIST_RANKS), recorder=rec), {}))
+    vegas_cfg, _ = vegas_case(*VEGAS_CASES[0])
+    cases.append(("integrate_vegas genz_gaussian d=15", lambda r: bits(r) + (r.chi2_dof,),
+                  lambda rec: integrate_vegas(vegas_cfg, device="cuda", recorder=rec), {}))
+    cases.append(("service fleet, 1 rank", lambda r: r, fleet(cuda_devices(1)), {}))
+    cases.append(("service fleet, 4 ranks", lambda r: r, fleet(cuda_devices(4)),
+                  dict(n_devices=4, expect_flow_name="service.migrate")))
+
+    gm = mc = 0
+    for label, key, run, check_kw in cases:
+        gm_kernel.reset_launch_count()
+        vs.reset_launch_count()
+        off, wall_off, syncs_off = _sync_counted(lambda: run(NULL))
+        sink = MemorySink()
+        rec = Recorder(sinks=(sink,))
+        on, wall_on, syncs_on = _sync_counted(lambda: run(rec))
+        gm += gm_kernel.launch_count()
+        mc += vs.launch_count()
+        row = dict(phase="telemetry", case=label, card=smi, wall_off_s=wall_off,
+                   wall_on_s=wall_on, overhead=wall_on / wall_off - 1.0, events=len(sink),
+                   sync_calls_off=syncs_off, sync_calls_on=syncs_on)
+        if "dist.work_imb" in {e["name"] for e in sink.events}:
+            row["work_imb_mean"] = loadview.mean_work_imbalance_from_events(sink.events)
+            row["mean_imbalance"] = on.mean_imbalance()
+            assert abs(row["work_imb_mean"] - row["mean_imbalance"]) <= 1e-12 * max(
+                abs(row["mean_imbalance"]), 1e-300), row
+        if "service.dispatches" in rec.counters:
+            row["dispatches"] = rec.counters["service.dispatches"]
+            row["dispatch_wall_p50_s"] = rec.quantile("service.dispatch_wall_s", 0.5)
+            assert rec.hists["service.dispatch_wall_s"]["count"] == row["dispatches"], row
+            assert rec.counters["service.iterations"] == on[1]["iterations"], row
+        problems = _trace_problems(sink.events, label.split()[0], **check_kw)
+        log(json.dumps(row))
+        assert key(on) == key(off), (label, key(on), key(off))
+        assert syncs_on == syncs_off > 0, row
+        assert not problems, (label, problems)
+    torch.cuda.empty_cache()
+    return gm, mc
+
+
+def phase_gk_service(smi):
+    """Phase 13b: the GK fleet on 1 and 4 ranks, every result bit-equal to
+    integrate() with GK on its theta on the card."""
+    from repro_torch.core import adaptive, integrands
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.launch.gm_perf import GK_SERVICE, GK_SERVICE_REQUESTS
+    from repro_torch.service import BatchScheduler, QuadRequest
+
+    family = integrands.PARAM_REGISTRY[GK_SERVICE["integrand"]]
+    d = GK_SERVICE["d"]
+    rng = np.random.default_rng(0)
+    thetas = [family.sample_theta(d, rng) for _ in range(GK_SERVICE_REQUESTS)]
+    runs = {}
+    for n in (1, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sched = BatchScheduler(QuadratureConfig(**GK_SERVICE), family, devices=cuda_devices(n))
+        results, wall = _timed(lambda: sorted(
+            sched.serve([QuadRequest(i, t) for i, t in enumerate(thetas)]),
+            key=lambda r: r.req_id))
+        stats = sched.last_stats
+        n_evals = sum(r.n_evals for r in results)
+        row = dict(phase="gk_service", card=smi, ranks=n, slots=GK_SERVICE["batch_slots"],
+                   capacity_per_slot=GK_SERVICE["capacity"], rel_tol=GK_SERVICE["rel_tol"],
+                   requests=len(results), wall_s=wall, requests_per_s=len(results) / wall,
+                   n_evals=n_evals, evals_per_s=n_evals / wall, iterations=stats["iterations"],
+                   dispatches=stats["dispatches"], migrations=stats["migrations"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   statuses={s: sum(r.status == s for r in results)
+                             for s in {r.status for r in results}})
+        log(json.dumps(row))
+        assert row["statuses"] == {"converged": GK_SERVICE_REQUESTS}, row
+        for r in results:
+            exact = family.exact(d, thetas[r.req_id])
+            assert abs(r.integral - exact) <= 10 * max(r.error, 1e-8 * abs(exact)), (r, exact)
+        runs[n] = results
+    t0 = time.perf_counter()
+    for res, theta in zip(runs[1], thetas):
+        cfg = QuadratureConfig(**{**GK_SERVICE, "integrand": integrands.to_spec(family, theta)})
+        single = adaptive.integrate(cfg, device="cuda")
+        for other in (res, runs[4][res.req_id]):
+            assert (other.status, other.iterations, other.n_evals, other.integral.hex(),
+                    other.error.hex()) == (single.status, single.iterations, single.n_evals,
+                                           single.integral.hex(), single.error.hex()), (
+                other, single)
+    log(json.dumps(dict(phase="gk_service_vs_integrate", requests=len(thetas),
+                        wall_s=time.perf_counter() - t0, bit_equal=True)))
+    torch.cuda.empty_cache()
+
+
+def phase_cli(smi):
+    """Phase 13c: the CLIs in process with --trace/--metrics/--strict; both
+    exit 0 and their files pass the telemetry checker."""
+    import shutil
+
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.launch import integrate as integrate_cli
+    from repro_torch.launch import serve_quad
+    from repro_torch.telemetry.check import main as check_main
+
+    root = os.path.join(HERE, "build", "cli_telemetry")
+    os.makedirs(root, exist_ok=True)
+    t = {k: os.path.join(root, k) for k in ("i.json", "i.jsonl", "s.json", "s.jsonl")}
+    gm_kernel.reset_launch_count()
+    try:
+        _, wall_i = _timed(lambda: integrate_cli.main([
+            "--integrand", "f4", "--d", "5", "--rel-tol", "1e-7", "--capacity", str(1 << 22),
+            "--trace", t["i.json"], "--metrics", t["i.jsonl"], "--telemetry-summary",
+            "--strict"]))
+        assert check_main(["--trace", t["i.json"], "--metrics", t["i.jsonl"]]) == 0
+        _, wall_s = _timed(lambda: serve_quad.main([
+            "--d", "3", "--n-requests", "32", "--batch-slots", "8", "--devices", "4",
+            "--chaos-fail-device", "2:3:9", "--trace", t["s.json"], "--metrics", t["s.jsonl"],
+            "--strict", "--quiet"]))
+        assert check_main(["--trace", t["s.json"], "--metrics", t["s.jsonl"], "--devices", "4",
+                           "--expect-flow-name", "service.evacuate"]) == 0
+        sizes = {k: os.path.getsize(v) for k, v in t.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = gm_kernel.launch_count()
+    log(json.dumps(dict(phase="cli", card=smi, integrate_wall_s=wall_i, serve_quad_wall_s=wall_s,
+                        file_bytes=sizes, gm_launches=launches)))
+    assert launches > 0
+    return launches
+
+
 def phase_vegas_timing():
     """The sums kernel at SUMS_TIMED's three shapes (8 shards, 64 bins,
     float64): its time and its two launches', its plain version's,
@@ -1158,12 +1376,19 @@ def main():
     gm_resilience, mc_resilience = phase_resilience(phase9, smi)
     launches += gm_resilience
     vegas_launches += mc_resilience
+    t13 = time.perf_counter()
+    gm_telemetry, mc_telemetry = phase_telemetry(smi)
+    launches += gm_telemetry
+    vegas_launches += mc_telemetry
+    phase_gk_service(smi)
+    launches += phase_cli(smi)
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     vt, *others = phase_vegas_timing()
     t = timings[0]
     kernel = dict(
         name="genz_malik_eval", route="cuda",
         source="src/repro_torch/kernels/csrc/gm_kernel.cuh",
-        replaces="src/repro/kernels/genz_malik_eval.py:44",
+        replaces="src/repro/kernels/genz_malik_eval.py:46",
         launches=launches, max_abs_err=t["max_abs_err"], ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         instr_bound_ms=t["instr_bound_ms"], library_ms=None,

@@ -12,6 +12,11 @@ from the active count, which the host tracks exactly
 ``lax.while_loop`` driver: it runs ``cfg.sync_every`` iterations per host
 sync, on windows sized from an upper bound of the population (see its
 docstring).
+
+Both take a ``recorder`` (:mod:`repro_torch.telemetry`) with the JAX
+package's names: ``core.eval`` / ``core.advance`` spans and a ``core.iter``
+instant per iteration in :func:`integrate`, one ``core.device_loop`` span in
+:func:`integrate_device`.  It records host numbers only and adds no read.
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ import torch
 from repro_torch.core import region_store
 from repro_torch.core.classify import classify, nonfinite_mask
 from repro_torch.core.config import QuadratureConfig
+from repro_torch.core.integrands import get as get_integrand
 from repro_torch.core.region_store import RegionState
 from repro_torch.core.rules import make_rule
 from repro_torch.core.split import classify_split_compact, next_population
+from repro_torch.telemetry.core import NULL
 
 
 @dataclasses.dataclass
@@ -227,12 +234,20 @@ def integrate(
     integrand=None,
     callback: Optional[Callable[[int, float, float, int], None]] = None,
     device="cuda",
+    recorder=NULL,
 ) -> AdaptiveResult:
     """Host-driven adaptive integration, one host sync per iteration.
 
     ``integrand`` overrides ``cfg.integrand`` (a registry entry, or on the
     CPU any torch callable ``f(x)``).  ``callback(it, integral, error,
     n_active)`` is called once per evaluate step.
+
+    ``recorder`` gets, per iteration, a ``core.eval`` span around the
+    evaluate, the classify and the iteration's one read (so on the card it
+    ends after the device has done that work), a ``core.iter`` instant with
+    the read values, and a ``core.advance`` span around the split and
+    compact, which ends with no read: on the card it measures the host's
+    enqueue time, not device time.
     """
     device = resolve_device(device)
     cfg, lo, hi, total_volume, rule, state = _setup(cfg, integrand, device)
@@ -248,21 +263,26 @@ def integrate(
     it = 0
     syncs = 0
     for _ in range(cfg.max_iters):
-        eval_w = region_store.select_window(ladder, n_active)
-        state = make_eval_step(cfg, rule, window=eval_w)(state)
-        w = region_store.select_window(adv_ladder, advance_target(n_active, C))
-        ww = None if w == C else w
-        # The classify half of the advance runs before the sync, so that
-        # the host learns the finalised count with the estimates and can
-        # size the next window without a second sync.
-        integral_t, error_t, fin = classify_window(
-            cfg, state, total_volume, width, ww
-        )
-        synced = torch.stack(
-            [integral_t.double(), error_t.double(), fin.sum().double()]
-        ).tolist()
+        with recorder.span("core.eval", window=int(n_active)):
+            eval_w = region_store.select_window(ladder, n_active)
+            state = make_eval_step(cfg, rule, window=eval_w)(state)
+            w = region_store.select_window(adv_ladder, advance_target(n_active, C))
+            ww = None if w == C else w
+            # The classify half of the advance runs before the sync, so that
+            # the host learns the finalised count with the estimates and can
+            # size the next window without a second sync.
+            integral_t, error_t, fin = classify_window(
+                cfg, state, total_volume, width, ww
+            )
+            synced = torch.stack(
+                [integral_t.double(), error_t.double(), fin.sum().double()]
+            ).tolist()
         syncs += 1
         integral, error, n_fin = synced[0], synced[1], int(synced[2])
+        if recorder.enabled:
+            recorder.event(
+                "core.iter", it=it, integral=integral, error=error, n_active=int(n_active)
+            )
         if callback is not None:
             callback(it, integral, error, n_active)
         if not (math.isfinite(integral) and math.isfinite(error)):
@@ -281,8 +301,9 @@ def integrate(
             break
         if n_active == 0:
             break
-        state = classify_split_compact(state, fin, window=ww)
-        state.it += 1  # in place, on the device
+        with recorder.span("core.advance", n_active=int(n_active)):
+            state = classify_split_compact(state, fin, window=ww)
+            state.it += 1  # in place, on the device
         it += 1
         n_active = next_population(n_active - n_fin, C)
 
@@ -324,7 +345,7 @@ def _landed(event) -> bool:
 
 
 def integrate_device(
-    cfg: QuadratureConfig, integrand=None, device="cuda"
+    cfg: QuadratureConfig, integrand=None, device="cuda", recorder=NULL
 ) -> AdaptiveResult:
     """Device-resident driver: ``cfg.sync_every`` iterations per host sync.
 
@@ -357,6 +378,9 @@ def integrate_device(
     still unevaluated), and there is no quarantine: ``nonfinite`` comes
     from the final values.  ``iterations`` is the state's ``it``.  The
     host syncs are at most ceil((iterations + 1) / K).
+
+    ``recorder`` gets one ``core.device_loop`` span around the whole loop,
+    as in the JAX package, whose host cannot see the loop's iterations.
     """
     device = resolve_device(device)
     cfg, lo, hi, total_volume, rule, state = _setup(cfg, integrand, device)
@@ -371,46 +395,47 @@ def integrate_device(
     it = 0
     syncs = 0
     final = None
-    while final is None:
-        steps = min(cfg.sync_every, cfg.max_iters - it)
-        snaps = []
-        known_j, known_n = 0, n  # newest exact population: at iteration known_j
-        pending = []  # (iteration whose population it is, event) of copies in flight
-        for j in range(steps):
-            while pending and _landed(pending[0][1]):
-                known_j = pending.pop(0)[0]
-                known_n = int(counts[known_j - 1])
-            bound = min(known_n << (j - known_j), C)
-            state = make_eval_step(cfg, rule, window=region_store.select_window(ladder, bound))(state)
-            w = region_store.select_window(adv_ladder, advance_target(bound, C))
-            ww = None if w == C else w
-            integral, error, fin = classify_window(cfg, state, total_volume, width, ww)
-            snap = torch.stack([x.double() for x in (
-                integral, error, state.active[:w].sum(), state.n_evals, state.it,
-                state.overflowed)])
-            state = classify_split_compact(state, fin, window=ww)
-            state.it += 1  # in place, on the device
-            counts[j].copy_(state.active[:w].sum(), non_blocking=True)
-            pending.append((j + 1, _record(device)))
-            snaps.append(snap)
-        if it + steps == cfg.max_iters:
-            # the loop ends after this advance: its estimates are the result
-            gi, ge = state.global_estimates()
-            snaps.append(torch.stack([x.double() for x in (
-                gi, ge, state.active.sum(), state.n_evals, state.it, state.overflowed)]))
-        rows = [dict(zip(_SNAP, r)) for r in torch.stack(snaps).tolist()]
-        syncs += 1
-        for row in rows[:steps]:
-            budget = max(cfg.abs_tol, abs(row["integral"]) * cfg.rel_tol)
-            if row["error"] <= budget or row["n_active"] == 0:
-                final = row
-                break
-        if final is None:
+    with recorder.span("core.device_loop", max_iters=cfg.max_iters):
+        while final is None:
+            steps = min(cfg.sync_every, cfg.max_iters - it)
+            snaps = []
+            known_j, known_n = 0, n  # newest exact population: at iteration known_j
+            pending = []  # (iteration whose population it is, event) of copies in flight
+            for j in range(steps):
+                while pending and _landed(pending[0][1]):
+                    known_j = pending.pop(0)[0]
+                    known_n = int(counts[known_j - 1])
+                bound = min(known_n << (j - known_j), C)
+                state = make_eval_step(cfg, rule, window=region_store.select_window(ladder, bound))(state)
+                w = region_store.select_window(adv_ladder, advance_target(bound, C))
+                ww = None if w == C else w
+                integral, error, fin = classify_window(cfg, state, total_volume, width, ww)
+                snap = torch.stack([x.double() for x in (
+                    integral, error, state.active[:w].sum(), state.n_evals, state.it,
+                    state.overflowed)])
+                state = classify_split_compact(state, fin, window=ww)
+                state.it += 1  # in place, on the device
+                counts[j].copy_(state.active[:w].sum(), non_blocking=True)
+                pending.append((j + 1, _record(device)))
+                snaps.append(snap)
             if it + steps == cfg.max_iters:
-                final = rows[-1]
-            else:
-                n = int(counts[steps - 1])  # landed: the read above synced
-                it += steps
+                # the loop ends after this advance: its estimates are the result
+                gi, ge = state.global_estimates()
+                snaps.append(torch.stack([x.double() for x in (
+                    gi, ge, state.active.sum(), state.n_evals, state.it, state.overflowed)]))
+            rows = [dict(zip(_SNAP, r)) for r in torch.stack(snaps).tolist()]
+            syncs += 1
+            for row in rows[:steps]:
+                budget = max(cfg.abs_tol, abs(row["integral"]) * cfg.rel_tol)
+                if row["error"] <= budget or row["n_active"] == 0:
+                    final = row
+                    break
+            if final is None:
+                if it + steps == cfg.max_iters:
+                    final = rows[-1]
+                else:
+                    n = int(counts[steps - 1])  # landed: the read above synced
+                    it += steps
 
     integral, error = final["integral"], final["error"]
     n_active, iterations = int(final["n_active"]), int(final["it"])
@@ -429,3 +454,14 @@ def integrate_device(
         overflowed=overflowed,
         host_syncs=syncs,
     )
+
+
+def integrate_exact_check(cfg: QuadratureConfig, device="cuda") -> tuple[AdaptiveResult, float]:
+    """Integrate a registry integrand (or a family spec) with :func:`integrate`
+    and return the result with its true relative error against the analytic
+    exact value."""
+    spec = get_integrand(cfg.integrand)
+    res = integrate(cfg, device=device)
+    exact = spec.exact(cfg.d)
+    rel = abs(res.integral - exact) / max(abs(exact), 1e-300)
+    return res, rel

@@ -50,6 +50,7 @@ from repro_torch.core.redistribution import balance_stats, make_schedule, redist
 from repro_torch.core.region_store import RegionState
 from repro_torch.core.rules import make_rule
 from repro_torch.core.split import classify_split_compact, next_population
+from repro_torch.telemetry.core import NULL
 
 
 @dataclasses.dataclass
@@ -118,6 +119,7 @@ def integrate_distributed(
     cfg: QuadratureConfig,
     integrand=None,
     devices: Optional[Sequence] = None,
+    recorder=NULL,
 ) -> DistributedResult:
     """Multi-rank integration, one host process for all ranks.
 
@@ -133,6 +135,12 @@ def integrate_distributed(
     budget, when no region is active, or at ``cfg.max_iters``; unlike
     :func:`repro_torch.core.adaptive.integrate`, ``iterations`` counts the
     iteration that converged too.
+
+    ``recorder`` (:mod:`repro_torch.telemetry`) gets the JAX package's
+    events: a ``dist.dispatch`` span per iteration (the JAX driver's fused
+    launch; here one iteration, ``executed`` = 1), and per iteration a
+    ``dist.work_imb`` gauge, the very float of the ``history`` row, and a
+    ``dist.iter`` instant, all from the values of the iteration's one read.
     """
     cfg = cfg.validate()
     if devices is None:
@@ -161,72 +169,80 @@ def integrate_distributed(
     it = 0
     syncs = 0
     while it < cfg.max_iters:
-        # --- evaluate (window from the rank's local count) -------------------
-        works, ests, errs, acts = [], [], [], []
-        for r, st in enumerate(states):
-            works.append(torch.sum(st.active & st.fresh))
-            st = make_eval_step(cfg, rule, window=region_store.select_window(ladder, n_loc[r]))(st)
-            states[r] = st
-            i_loc, e_loc = st.global_estimates(
-                window=region_store.select_window(adv_ladder, n_loc[r])
-            )
-            ests.append(i_loc)
-            errs.append(e_loc)
-            acts.append(torch.sum(st.active))
+        with recorder.span("dist.dispatch", it=it) as sp:
+            # --- evaluate (window from the rank's local count) -------------------
+            works, ests, errs, acts = [], [], [], []
+            for r, st in enumerate(states):
+                works.append(torch.sum(st.active & st.fresh))
+                st = make_eval_step(cfg, rule, window=region_store.select_window(ladder, n_loc[r]))(st)
+                states[r] = st
+                i_loc, e_loc = st.global_estimates(
+                    window=region_store.select_window(adv_ladder, n_loc[r])
+                )
+                ests.append(i_loc)
+                errs.append(e_loc)
+                acts.append(torch.sum(st.active))
 
-        # --- metadata exchange (the only global sync point) -------------------
-        integral_t = ranks.psum(ests)
-        error_t = ranks.psum(errs)
-        n_global_t = ranks.psum(acts)
-        work_sum, work_max = ranks.psum(works), ranks.pmax(works)
+            # --- metadata exchange (the only global sync point) -------------------
+            integral_t = ranks.psum(ests)
+            error_t = ranks.psum(errs)
+            n_global_t = ranks.psum(acts)
+            work_sum, work_max = ranks.psum(works), ranks.pmax(works)
 
-        # --- classify (global equal-share threshold; local advance window) ----
-        fins, windows, n_fin = [], [], []
-        for r, st in enumerate(states):
-            w = region_store.select_window(adv_ladder, advance_target(n_loc[r], C))
-            ww = None if w == C else w
-            sl = slice(None) if ww is None else slice(0, ww)
-            fin = classify(
-                cfg,
-                st.est[sl],
-                st.err[sl],
-                st.halfw[sl],
-                st.active[sl],
-                integral_t.to(st.est.device, non_blocking=True),
-                total_volume,
-                widths[r],
-                n_active=n_global_t.to(st.est.device, non_blocking=True),
+            # --- classify (global equal-share threshold; local advance window) ----
+            fins, windows, n_fin = [], [], []
+            for r, st in enumerate(states):
+                w = region_store.select_window(adv_ladder, advance_target(n_loc[r], C))
+                ww = None if w == C else w
+                sl = slice(None) if ww is None else slice(0, ww)
+                fin = classify(
+                    cfg,
+                    st.est[sl],
+                    st.err[sl],
+                    st.halfw[sl],
+                    st.active[sl],
+                    integral_t.to(st.est.device, non_blocking=True),
+                    total_volume,
+                    widths[r],
+                    n_active=n_global_t.to(st.est.device, non_blocking=True),
+                )
+                fins.append(fin)
+                windows.append(ww)
+                n_fin.append(torch.sum(fin))
+            synced = ranks.gather(
+                [x.double() for x in [integral_t, error_t, work_sum, work_max, *n_fin]]
+            ).tolist()
+            syncs += 1
+            integral, error = synced[0], synced[1]
+            work_sum_h, work_max_h = int(synced[2]), int(synced[3])
+            n_active = sum(n_loc)
+            work_imb = (
+                1.0 - (work_sum_h / n) / max(work_max_h, 1) if work_max_h > 0 else 0.0
             )
-            fins.append(fin)
-            windows.append(ww)
-            n_fin.append(torch.sum(fin))
-        synced = ranks.gather(
-            [x.double() for x in [integral_t, error_t, work_sum, work_max, *n_fin]]
-        ).tolist()
-        syncs += 1
-        integral, error = synced[0], synced[1]
-        work_sum_h, work_max_h = int(synced[2]), int(synced[3])
-        n_active = sum(n_loc)
-        work_imb = (
-            1.0 - (work_sum_h / n) / max(work_max_h, 1) if work_max_h > 0 else 0.0
-        )
-        if dt == torch.float32:
-            work_imb = float(np.float32(work_imb))
-        max_rows, _, _ = balance_stats(n_loc)
+            if dt == torch.float32:
+                work_imb = float(np.float32(work_imb))
+            max_rows, _, _ = balance_stats(n_loc)
 
-        # --- split, then the decentralised redistribution ----------------------
-        for r, st in enumerate(states):
-            states[r] = classify_split_compact(st, fins[r], window=windows[r])
-        n_loc = [next_population(n_loc[r] - int(synced[4 + r]), C) for r in range(n)]
-        if cfg.redistribution != "off":
-            before = n_loc
-            states, n_loc = redistribute(
-                states, ranks, schedule=schedule, cap=cfg.message_cap,
-                limit=limit, it=it, n_rows=n_loc,
+            # --- split, then the decentralised redistribution ----------------------
+            for r, st in enumerate(states):
+                states[r] = classify_split_compact(st, fins[r], window=windows[r])
+            n_loc = [next_population(n_loc[r] - int(synced[4 + r]), C) for r in range(n)]
+            if cfg.redistribution != "off":
+                before = n_loc
+                states, n_loc = redistribute(
+                    states, ranks, schedule=schedule, cap=cfg.message_cap,
+                    limit=limit, it=it, n_rows=n_loc,
+                )
+                moved += sum(max(b - a, 0) for a, b in zip(n_loc, before))
+            for st in states:
+                st.it += 1  # in place, on the device
+            sp["executed"] = 1
+        if recorder.enabled:
+            recorder.gauge("dist.work_imb", work_imb, it=it)
+            recorder.event(
+                "dist.iter", it=it, integral=integral, error=error,
+                n_active=n_active, max_rows=int(max_rows),
             )
-            moved += sum(max(b - a, 0) for a, b in zip(n_loc, before))
-        for st in states:
-            st.it += 1  # in place, on the device
         history.append((it, integral, error, n_active, work_imb, max_rows))
         it += 1
 

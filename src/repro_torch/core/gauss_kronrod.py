@@ -4,8 +4,9 @@ The 15-point Kronrod extension of the 7-point Gauss rule is tensorised over
 ``d`` axes.  The Gauss nodes are a subset of the Kronrod nodes, so the whole
 embedded family is evaluated in one streaming pass over the 15^d grid: a
 Python loop over chunks of ``chunk`` nodes, each decoded from a flat index,
-so that nothing of size 15^d is ever materialised.  Cost grows as 15^d,
-which is why the paper limits this rule to low and moderate dimension.
+so that nothing of size 15^d is ever materialised, inside a loop over
+blocks of regions that bounds the transient.  Cost grows as 15^d, which is
+why the paper limits this rule to low and moderate dimension.
 
 The JAX package has no Pallas kernel for this rule (it is plain XLA, a
 ``lax.fori_loop`` over the chunks), so the port is torch operations, on the
@@ -18,8 +19,13 @@ and the Kronrod weights along the others.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+from repro_torch.core.genz_malik import row_prod
+from repro_torch.core.region_store import tree_sum
 
 # QUADPACK 15-point Kronrod nodes/weights on [-1, 1]; Gauss-7 is embedded at
 # the odd positions.  Symmetric: the full 15 are stored for simple indexing.
@@ -71,34 +77,87 @@ def n_nodes(d: int) -> int:
     return N_1D**d
 
 
-def gk_eval_batch(f, centers: torch.Tensor, halfw: torch.Tensor, chunk: int = 512):
+# Regions per evaluation block.  On the CPU a block's integrand calls stay
+# under ATen's parallel grain (32768 elements), so that each runs on one
+# thread: split points inside an elementwise call would put a few elements
+# in the scalar tail of a vector loop, whose exp and pow round differently
+# from the vector path, and a region's bits would then depend on where it
+# sits in the batch.  On the card every element runs the same code
+# wherever it sits, and the block only bounds the transient: ~4 arrays of
+# d x block x chunk values (x, the integrand's temporaries, the per-axis
+# products), under ~1.1 GB in float64.
+CPU_BLOCK_LANES = 1 << 14
+DEVICE_BLOCK_ELEMS = 1 << 25
+
+
+def region_block(device: torch.device, d: int, chunk: int) -> int:
+    """Regions evaluated together in one block on ``device``."""
+    if device.type == "cpu":
+        return max(1, CPU_BLOCK_LANES // chunk)
+    return max(1, DEVICE_BLOCK_ELEMS // (d * chunk))
+
+
+def transient_bytes(d: int, rows: int, item: int, chunk: int = 512) -> int:
+    """Device bytes that one :func:`gk_eval_batch` call over ``rows``
+    regions holds at once on the card, beyond its inputs and outputs: the
+    coordinates and the integrand's temporaries (about three arrays of
+    d x block x chunk), the per-axis products and their pairwise sums (about
+    one more), and the values."""
+    n = min(rows, region_block(torch.device("cuda"), d, chunk))
+    return (4 * d + 2) * n * chunk * item
+
+
+def gk_eval_batch(
+    f,
+    centers: torch.Tensor,
+    halfw: torch.Tensor,
+    chunk: int = 512,
+    theta_cols: Optional[torch.Tensor] = None,
+    theta_fields: Optional[tuple] = None,
+):
     """Evaluate the tensor GK rule on a batch of regions.
 
     Args:
-      f: integrand mapping (d, N) -> (N,).
+      f: integrand mapping (d, N) -> (N,); with ``theta_cols``, a family's
+        ``f(x, theta)``.
       centers, halfw: (B, d).
-      chunk: nodes processed per streaming step.
+      chunk: nodes processed per streaming step.  It fixes the order of
+        the node sum, so it is never changed to save memory: the region
+        axis is split instead (:func:`region_block`).
+      theta_cols: None, or ``(n_theta, S)`` with S dividing B: regions
+        ``[s B/S, (s+1) B/S)`` take column ``s``, split into the leaves of
+        ``theta_fields`` (the batch service's one evaluation over every
+        live slot).  Each leaf reaches ``f`` as ``(d, R, 1)`` against
+        ``(d, R, chunk)`` coordinates.
 
     Returns:
       (i_k, i_g, axis_disc): Kronrod and Gauss estimates (B,), plus the
       per-axis |K - G_i| discrepancies (B, d) used for axis selection.
+
+    Every sum over a chunk's nodes is a pairwise sum in a fixed order
+    (:func:`repro_torch.core.region_store.tree_sum`), and the chunks add up
+    left to right, so a region's bits do not depend on B, on its position
+    or on its neighbours' thetas: the batch service gets the bits of
+    :func:`repro_torch.core.adaptive.integrate` for every slot.
     """
     dtype, device = centers.dtype, centers.device
     b, d = centers.shape
     total = N_1D**d
     n_chunks = -(-total // chunk)
+    if theta_cols is not None:
+        n_cols = theta_cols.shape[1]
+        if n_cols < 1 or b % n_cols:
+            raise ValueError(f"theta_cols has {n_cols} columns, which must divide B={b}")
+        lanes_per_col = b // n_cols
+        sizes = [theta_cols.shape[0] // len(theta_fields)] * len(theta_fields)
 
     xk = torch.as_tensor(XK, dtype=dtype, device=device)
     wk = torch.as_tensor(WK, dtype=dtype, device=device)
     wg = torch.as_tensor(WG, dtype=dtype, device=device)
     lane = torch.arange(chunk, device=device)
 
-    ct = centers.T  # (d, B)
-    ht = halfw.T
-
-    s_k = torch.zeros(b, dtype=dtype, device=device)
-    s_g = torch.zeros(b, dtype=dtype, device=device)
-    s_gi = torch.zeros((b, d), dtype=dtype, device=device)
+    # the nodes and weights of every chunk (shared by all regions)
+    weights = []
     for c_idx in range(n_chunks):
         flat = c_idx * chunk + lane  # (chunk,)
         valid = (flat < total).to(dtype)
@@ -110,24 +169,47 @@ def gk_eval_batch(f, centers: torch.Tensor, halfw: torch.Tensor, chunk: int = 51
             digits.append(rem % N_1D)
             rem = rem // N_1D
         digits = torch.stack(digits, dim=0)  # (d, chunk)
-
-        nodes = xk[digits]  # (d, chunk)
         wk_ax = wk[digits]
         wg_ax = wg[digits]
-        w_k = torch.prod(wk_ax, dim=0) * valid  # (chunk,)
-        w_g = torch.prod(wg_ax, dim=0) * valid
+        w_k = row_prod(wk_ax) * valid  # (chunk,)
+        w_g = row_prod(wg_ax) * valid
         # per axis: Gauss along axis i, Kronrod elsewhere
         ratio = wg_ax / wk_ax  # (d, chunk); wk is never zero
-        w_gi = w_k[None, :] * ratio  # (d, chunk)
+        weights.append((xk[digits], w_k, w_g, w_k[None, :] * ratio))
 
-        x = ct[:, :, None] + ht[:, :, None] * nodes[:, None, :]  # (d, B, chunk)
-        vals = f(x.reshape(d, b * chunk)).reshape(b, chunk)
+    ct = centers.T  # (d, B)
+    ht = halfw.T
+    s_k = torch.empty(b, dtype=dtype, device=device)
+    s_g = torch.empty(b, dtype=dtype, device=device)
+    s_gi = torch.empty((b, d), dtype=dtype, device=device)
+    step = region_block(device, d, chunk)
+    for r0 in range(0, b, step):
+        blk = slice(r0, min(r0 + step, b))
+        n = blk.stop - blk.start
+        theta = None
+        if theta_cols is not None:
+            cols = torch.arange(blk.start, blk.stop, device=device) // lanes_per_col
+            rows = theta_cols[:, cols]  # (n_theta, n): one theta per region
+            theta = {k: v[:, :, None] for k, v in zip(theta_fields, rows.split(sizes))}
+        acc_k = acc_g = acc_gi = None
+        for nodes, w_k, w_g, w_gi in weights:
+            x = ct[:, blk, None] + ht[:, blk, None] * nodes[:, None, :]  # (d, n, chunk)
+            if theta is None:
+                vals = f(x.reshape(d, n * chunk)).reshape(n, chunk)
+            else:
+                vals = f(x, theta)
+            part = (
+                tree_sum(vals * w_k),
+                tree_sum(vals * w_g),
+                tree_sum(vals[:, None, :] * w_gi),  # (n, d)
+            )
+            if acc_k is None:
+                acc_k, acc_g, acc_gi = part
+            else:
+                acc_k, acc_g, acc_gi = acc_k + part[0], acc_g + part[1], acc_gi + part[2]
+        s_k[blk], s_g[blk], s_gi[blk] = acc_k, acc_g, acc_gi
 
-        s_k = s_k + vals @ w_k
-        s_g = s_g + vals @ w_g
-        s_gi = s_gi + torch.einsum("bc,dc->bd", vals, w_gi)
-
-    scale = torch.prod(ht, dim=0)  # (B,)
+    scale = row_prod(ht)  # (B,)
     i_k = scale * s_k
     i_g = scale * s_g
     axis_disc = torch.abs(scale[:, None] * (s_gi - s_k[:, None]))

@@ -101,9 +101,21 @@ class GenzMalikRule:
 
 
 class GaussKronrodRule:
-    """Tensor-product (G7, K15); cost 15^d, so low and moderate d only."""
+    """Tensor-product (G7, K15); cost 15^d, so low and moderate d only.
 
-    def __init__(self, d: int, integrand, chunk: int = 512, safety: float = 1.0):
+    ``integrand`` is ``f(x)``, or a family's ``f(x, theta)`` together with
+    its ``theta_fields``: then every :meth:`eval_batch` call takes theta as
+    ``theta_cols`` (the batch service's one theta per slot).
+    """
+
+    def __init__(
+        self,
+        d: int,
+        integrand,
+        chunk: int = 512,
+        safety: float = 1.0,
+        theta_fields: Optional[tuple] = None,
+    ):
         if d > 6:
             raise ValueError(
                 f"tensor Gauss-Kronrod is prohibitive for d={d} (15^d nodes); "
@@ -113,17 +125,33 @@ class GaussKronrodRule:
         self.f = integrand
         self.chunk = chunk
         self.safety = safety
+        self.theta_fields = theta_fields
         self.n_evals_per_region = gauss_kronrod.n_nodes(d)
 
-    def eval_batch(self, centers: torch.Tensor, halfw: torch.Tensor):
-        """(B, d) regions -> (est, err, split_axis) each of shape (B,)."""
+    def eval_batch(
+        self,
+        centers: torch.Tensor,
+        halfw: torch.Tensor,
+        theta_cols: Optional[torch.Tensor] = None,
+    ):
+        """(B, d) regions -> (est, err, split_axis) each of shape (B,).
+
+        ``theta_cols`` (``(n_theta, S)``, S dividing B) gives each run of
+        ``B // S`` regions its own theta column, as for the GM rule; it is
+        required exactly when the rule holds a family's ``f(x, theta)``.
+        """
+        if (theta_cols is None) != (self.theta_fields is None):
+            raise ValueError(
+                "a family's GK rule takes theta_cols, and a plain integrand's none"
+            )
         i_k, i_g, axis_disc = gauss_kronrod.gk_eval_batch(
-            self.f, centers, halfw, chunk=self.chunk
+            self.f, centers, halfw, chunk=self.chunk, theta_cols=theta_cols,
+            theta_fields=self.theta_fields,
         )
         err = self.safety * torch.abs(i_k - i_g)
         # round-off floor
         eps = torch.finfo(i_k.dtype).eps
-        vol = torch.prod(2.0 * halfw, dim=-1)
+        vol = row_prod((2.0 * halfw).movedim(-1, 0))
         err = torch.maximum(err, 50.0 * eps * (torch.abs(i_k) + vol))
         axis = _select_axis(axis_disc, halfw)
         return i_k, err, axis
@@ -141,7 +169,9 @@ def make_rule(
     family together with ``theta``, or a torch callable ``f(x)``.  A
     config-named family spec (``"genz_gaussian:5,5:0.3,0.7"``) is parsed
     into (family, theta), so that theta reaches the GM kernel as rows; the
-    GK rule binds it into the family's torch function.
+    GK rule binds it into the family's torch function.  A family without a
+    theta (the batch service) takes one theta per slot, as ``theta_cols``
+    of every ``eval_batch`` call, with either rule.
     """
     if theta is not None and integrand is None:
         raise ValueError("theta requires an explicit family integrand")
@@ -161,6 +191,9 @@ def make_rule(
             def fn(x):
                 return family_fn(x, bound)
 
+        elif hasattr(f, "theta_fields"):
+            # a family without a theta: one theta per slot at every call
+            return GaussKronrodRule(cfg.d, fn, theta_fields=f.theta_fields)
         return GaussKronrodRule(cfg.d, fn)
     if device is not None and torch.device(device).type == "cuda":
         if getattr(f, "kernel_id", None) is None:

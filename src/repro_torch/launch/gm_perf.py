@@ -82,6 +82,11 @@ SERVICE = dict(d=5, integrand="genz_gaussian", capacity=1 << 19, batch_slots=64,
                admit_every=1, sync_every=4, eval_window_min=256)
 SERVICE_REQUESTS = 192
 SERVICE_TOLS = (1e-3, 1e-7)  # rel_tol of even and odd request indices
+# The Gauss-Kronrod fleet (chip_smoke.py phase 13b): 64 Gaussians at d = 3,
+# thetas from sample_theta with default_rng(0), through 16 slots of 2^14.
+GK_SERVICE = dict(d=3, integrand="genz_gaussian", rule="gauss_kronrod", rel_tol=1e-8,
+                  capacity=1 << 14, batch_slots=16, sync_every=4)
+GK_SERVICE_REQUESTS = 64
 TIMED_B = 1 << 20
 # VEGAS cases of chip_smoke.py phase 10, at a high-dimension user's sizes:
 # (integrand, d, mc_samples, rel_tol); a family's theta is sample_theta's

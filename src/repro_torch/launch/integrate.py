@@ -11,13 +11,40 @@ samples one theta from --theta-seed:
   PYTHONPATH=src python -m repro_torch.launch.integrate --backend vegas --d 10 \\
       --integrand genz_gaussian --rel-tol 1e-3 --device cpu
 
+Telemetry: a Chrome trace, the event stream and the summary table, checked
+afterwards by the telemetry checker; --strict exits 1 unless the result is
+finite and converged:
+  PYTHONPATH=src python -m repro_torch.launch.integrate --integrand f4 --d 3 --device cpu \
+      --trace /tmp/t.json --metrics /tmp/m.jsonl --telemetry-summary --strict
+  PYTHONPATH=src python -m repro_torch.telemetry.check --trace /tmp/t.json --metrics /tmp/m.jsonl
+
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--devices N``
 runs N ranks from this one process: rank r on cuda:(r mod device count), or
 all on the CPU with ``--device cpu``; with VEGAS the ranks split the sample
-shards (the result is bit-identical to one rank).
+shards (the result is bit-identical to one rank).  The JAX CLI's
+``--use-kernel`` and ``--interpret`` (its Pallas path) are refused: the
+device picks the path here.
 """
 
 import argparse
+import math
+import sys
+
+from repro_torch.telemetry.flags import (
+    CliTelemetry,
+    add_pallas_flags,
+    add_telemetry_flags,
+    refuse_pallas_flags,
+)
+
+# --strict's fix for each unconverged status
+STRICT_HINTS = {
+    "max_iters": "raise --max-iters (or --mc-iters for vegas), or loosen --rel-tol",
+    "capacity": "raise --capacity or loosen --rel-tol",
+    "nonfinite": "the integrand produced NaN/Inf on this domain; check the "
+    "integrand/theta for poles or overflow",
+    "no_active": "the region population collapsed; loosen --rel-tol",
+}
 
 
 def main(argv=None) -> None:
@@ -30,7 +57,21 @@ def main(argv=None) -> None:
     ap.add_argument("--rule", default="genz_malik", choices=["genz_malik", "gauss_kronrod"])
     ap.add_argument("--max-iters", type=int, default=600)
     ap.add_argument(
+        "--block-regions", type=int, default=0,
+        help="GM kernel lanes per block (0 = default)",
+    )
+    ap.add_argument(
+        "--eval-window", action=argparse.BooleanOptionalAction, default=True,
+        help="evaluate only the leading active window of the region store",
+    )
+    ap.add_argument(
         "--eval-window-min", type=int, default=256, help="smallest window ladder rung"
+    )
+    ap.add_argument(
+        "--advance-window", action=argparse.BooleanOptionalAction, default=True,
+        help="window the advance stage (classify, split and compact, the global "
+        "reductions) as well: the same bits, the whole iteration scales with the "
+        "live population",
     )
     ap.add_argument(
         "--backend",
@@ -71,7 +112,15 @@ def main(argv=None) -> None:
         action="store_true",
         help="device-resident driver (sync-every iterations per host sync)",
     )
+    add_telemetry_flags(ap)
+    ap.add_argument(
+        "--strict", action="store_true",
+        help="exit 1 unless the result is finite and converged (for scripted runs: "
+        "a NaN or a max_iters/capacity/nonfinite end must fail the pipeline)",
+    )
+    add_pallas_flags(ap)
     args = ap.parse_args(argv)
+    refuse_pallas_flags(ap, args)
 
     import numpy as np
 
@@ -96,7 +145,10 @@ def main(argv=None) -> None:
         classifier=args.classifier,
         rule=args.rule,
         max_iters=args.max_iters,
+        block_regions=args.block_regions,
+        eval_window=args.eval_window,
         eval_window_min=args.eval_window_min,
+        advance_window=args.advance_window,
         backend=args.backend,
         mc_samples=args.mc_samples,
         mc_max_iters=args.mc_iters,
@@ -112,27 +164,43 @@ def main(argv=None) -> None:
             if args.device == "cpu"
             else cuda_devices(args.devices)
         )
+    telemetry = CliTelemetry(args)
+    recorder = telemetry.recorder
     if cfg.resolved_backend() == "vegas":
         if devices is not None:
-            res = integrate_vegas_distributed(cfg, devices=devices)
+            res = integrate_vegas_distributed(cfg, devices=devices, recorder=recorder)
             print(res.summary())
             print(f"devices={len(devices)} (sample shards split over the ranks)")
         else:
-            res = integrate_vegas(cfg, device=args.device)
+            res = integrate_vegas(cfg, device=args.device, recorder=recorder)
             print(res.summary())
     elif devices is not None:
-        res = integrate_distributed(cfg, devices=devices)
+        res = integrate_distributed(cfg, devices=devices, recorder=recorder)
         print(res.summary())
         print(f"devices={res.n_devices} mean_imbalance={res.mean_imbalance():.3f}")
     elif args.device_loop:
-        res = integrate_device(cfg, device=args.device)
+        res = integrate_device(cfg, device=args.device, recorder=recorder)
         print(res.summary())
     else:
-        res = integrate(cfg, device=args.device)
+        res = integrate(cfg, device=args.device, recorder=recorder)
         print(res.summary())
+    telemetry.finish(print)
     exact = get(integrand).exact(args.d)
     rel = abs(res.integral - exact) / max(abs(exact), 1e-300)
     print(f"exact={exact:.15e} true_rel_err={rel:.3e}")
+
+    if args.strict:
+        problems = []
+        if not (math.isfinite(res.integral) and math.isfinite(res.error)):
+            problems.append(
+                f"non-finite result (integral={res.integral!r}, error={res.error!r})"
+            )
+        if res.status != "converged":
+            hint = STRICT_HINTS.get(res.status, "see the status taxonomy in DESIGN.md")
+            problems.append(f"status={res.status!r} (hint: {hint})")
+        if problems:
+            print("STRICT: " + "; ".join(problems), file=sys.stderr)
+            sys.exit(1)
 
 
 if __name__ == "__main__":

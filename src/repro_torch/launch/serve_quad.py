@@ -20,22 +20,44 @@ serves again the requests in flight at that snapshot, with the same bits):
   PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --d 3 \\
       --n-requests 16 --batch-slots 4 --checkpoint-dir /tmp/quad-ckpt --checkpoint-every 5 --resume
 Rank 2 of 4 lost at iteration 3 and back at 9: its slots are evacuated, the
-ranks shrink to 2, and regrow to 4:
+ranks shrink to 2, and regrow to 4; --strict exits 1 unless every result is
+finite and converged, and logs each request that needed a recovery:
   PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --d 3 \\
-      --n-requests 32 --batch-slots 8 --devices 4 --chaos-fail-device 2:3:9
+      --n-requests 32 --batch-slots 8 --devices 4 --chaos-fail-device 2:3:9 --strict
+Explicit problems (one family spec per --request) under the Gauss-Kronrod
+rule, with a Chrome trace and the event stream:
+  PYTHONPATH=src python -m repro_torch.launch.serve_quad --device cpu --d 2 \\
+      --rule gauss_kronrod --request genz_gaussian:5,5:0.3,0.7 \\
+      --request genz_gaussian:8,2:0.5,0.5 --trace /tmp/q.json --metrics /tmp/q.jsonl
 
 Runs on the CUDA device unless ``--device cpu`` is given; ``--devices N``
 runs N ranks from this one process (rank r on cuda:(r mod device count)).
-The telemetry flags are not ported yet and raise.
+Progress goes through ``logging`` to stdout (``--quiet`` / ``--verbose``).
+The JAX CLI's ``--use-kernel`` and ``--interpret`` (its Pallas path) are
+refused: the device picks the path here.
 """
 
 import argparse
+import math
+import sys
 import time
 
-# flags of parts not ported yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "trace": "queue 1 item 9 (observability)",
-    "metrics": "queue 1 item 9 (observability)",
+from repro_torch.telemetry.flags import (
+    CliTelemetry,
+    add_pallas_flags,
+    add_telemetry_flags,
+    refuse_pallas_flags,
+)
+from repro_torch.telemetry.logutil import add_verbosity_flags, setup_logging
+
+# --strict's fix for each unconverged status
+STRICT_HINTS = {
+    "max_iters": "raise --max-iters (or --mc-iters for vegas), or loosen --rel-tol",
+    "capacity": "raise --capacity or loosen --rel-tol",
+    "nonfinite": "the integrand produced NaN/Inf on this domain; check the "
+    "integrand/theta for poles or overflow",
+    "deadline": "raise --deadline-s / --max-evals or loosen the tolerance",
+    "no_active": "the region population collapsed; loosen --rel-tol",
 }
 
 
@@ -44,6 +66,10 @@ def main(argv=None) -> None:
     ap.add_argument("--family", default="genz_gaussian")
     ap.add_argument("--d", type=int, default=3)
     ap.add_argument("--n-requests", type=int, default=32, help="random problems to sample")
+    ap.add_argument(
+        "--request", action="append", default=[], metavar="SPEC",
+        help="explicit family spec (repeatable; overrides --n-requests)",
+    )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rel-tol", type=float, default=1e-6)
     ap.add_argument(
@@ -57,6 +83,14 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-slots", type=int, default=16)
     ap.add_argument("--admit-every", type=int, default=1)
     ap.add_argument("--eval-window-min", type=int, default=256)
+    ap.add_argument(
+        "--advance-window", action=argparse.BooleanOptionalAction, default=True,
+        help="window the slot-batched advance too (the same bits)",
+    )
+    ap.add_argument(
+        "--rule", default="genz_malik", choices=["genz_malik", "gauss_kronrod"],
+        help="cubature rule of every slot (Gauss-Kronrod: d <= 6)",
+    )
     ap.add_argument("--max-iters", type=int, default=300)
     ap.add_argument("--sync-every", type=int, default=4)
     ap.add_argument(
@@ -114,20 +148,26 @@ def main(argv=None) -> None:
         help="watchdog timeout per dispatch: a wedged rank surfaces as a "
         "DispatchTimeout instead of hanging the serve loop",
     )
-    ap.add_argument("--trace", default=None)
-    ap.add_argument("--metrics", default=None)
+    add_telemetry_flags(ap)
+    ap.add_argument(
+        "--strict", action="store_true",
+        help="exit 1 unless every result is finite and converged; runs that "
+        "completed only through an evacuation or a retry exit 0 but log a "
+        "degraded-mode warning with each request's provenance",
+    )
+    add_pallas_flags(ap)
+    add_verbosity_flags(ap)
     args = ap.parse_args(argv)
-    for name, item in NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
-            ap.error(f"--{name.replace('_', '-')} is not ported yet (ROADMAP {item})")
+    refuse_pallas_flags(ap, args)
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
+    log = setup_logging(quiet=args.quiet, verbose=args.verbose)
 
     import numpy as np
     import torch
 
     from repro_torch.core.config import QuadratureConfig
-    from repro_torch.core.integrands import get_param
+    from repro_torch.core.integrands import get_param, parse_spec
     from repro_torch.core.ranks import cuda_devices
     from repro_torch.service import (
         BatchScheduler,
@@ -147,6 +187,8 @@ def main(argv=None) -> None:
         batch_slots=args.batch_slots,
         admit_every=args.admit_every,
         eval_window_min=args.eval_window_min,
+        advance_window=args.advance_window,
+        rule=args.rule,
         max_iters=args.max_iters,
         backend=args.backend,
         mc_samples=args.mc_samples,
@@ -183,8 +225,19 @@ def main(argv=None) -> None:
             f"{len(devices)} ranks: each rank owns batch_slots / ranks slots"
         )
 
-    rng = np.random.default_rng(args.seed)
-    thetas = [family.sample_theta(args.d, rng) for _ in range(args.n_requests)]
+    if args.request:
+        thetas = []
+        for spec in args.request:
+            req_family, theta = parse_spec(spec)
+            if req_family.name != family.name:
+                raise SystemExit(
+                    f"--request {spec!r} names family {req_family.name!r}, "
+                    f"but --family is {args.family!r}"
+                )
+            thetas.append(theta)
+    else:
+        rng = np.random.default_rng(args.seed)
+        thetas = [family.sample_theta(args.d, rng) for _ in range(args.n_requests)]
     rel_tols = [float(t) for t in args.rel_tols.split(",")] if args.rel_tols else None
     requests = [
         QuadRequest(
@@ -196,10 +249,10 @@ def main(argv=None) -> None:
         )
         for i, t in enumerate(thetas)
     ]
-    print(
+    log.info(
         f"serving {len(requests)} x {family.name} (d={args.d}) through "
         f"{cfg.batch_slots} slots on {len(devices)} rank(s) {[str(d) for d in devices]} "
-        f"(backend={cfg.resolved_backend()}, rebalance={cfg.rebalance}"
+        f"(backend={cfg.resolved_backend()}, rule={cfg.rule}, rebalance={cfg.rebalance}"
         f"{', graceful' if args.graceful else ''})"
     )
     serve_kwargs = {
@@ -230,25 +283,54 @@ def main(argv=None) -> None:
         serve_kwargs["fault_injector"] = DeviceDown(
             device=dev, at_tick=tick, restore_at_tick=restore
         )
-        print(f"chaos: device {dev} fails at iteration {tick}"
-              + ("" if restore is None else f", heals at iteration {restore}"))
+        log.info(f"chaos: device {dev} fails at iteration {tick}"
+                 + ("" if restore is None else f", heals at iteration {restore}"))
+    telemetry = CliTelemetry(args)
     sched = (GracefulScheduler if args.graceful else BatchScheduler)(
-        cfg, family, devices=devices, **serve_kwargs)
+        cfg, family, devices=devices, recorder=telemetry.recorder, **serve_kwargs)
     t0 = time.perf_counter()
-    n = 0
+    results = []
     for res in sched.serve(requests, resume=args.resume):
-        n += 1
+        results.append(res)
         line = res.summary()
         if args.validate:
             exact = family.exact(args.d, thetas[res.req_id])
             rel = abs(res.integral - exact) / max(abs(exact), 1e-300)
             line += f" true_rel_err={rel:.2e}"
-        print(f"[{n}/{len(requests)}] {line}")
+        log.info(f"[{len(results)}/{len(requests)}] {line}")
     if args.device == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    print(f"done: {n} problems in {dt:.2f}s ({n / dt:.1f} problems/sec)")
-    print("stats: " + " ".join(f"{k}={v}" for k, v in sched.last_stats.items() if v))
+    n = len(results)
+    log.info(f"done: {n} problems in {dt:.2f}s ({n / dt:.1f} problems/sec)")
+    log.info("stats: " + " ".join(f"{k}={v}" for k, v in sched.last_stats.items() if v))
+    telemetry.finish(log.info)
+
+    if args.strict:
+        def finite(r):
+            return math.isfinite(r.integral) and math.isfinite(r.error)
+
+        problems = []
+        for res in sorted(results, key=lambda r: r.req_id):
+            if not finite(res):
+                problems.append(
+                    f"req {res.req_id}: non-finite result "
+                    f"(integral={res.integral!r}, error={res.error!r})"
+                )
+            elif res.status != "converged":
+                hint = STRICT_HINTS.get(res.status, "see the status taxonomy in DESIGN.md")
+                problems.append(f"req {res.req_id}: status={res.status!r} (hint: {hint})")
+            elif res.evacuated or res.attempts > 1:
+                # converged after a recovery: the answer is right, the road
+                # there was not; loud, with provenance, but not a failure
+                log.warning(
+                    f"STRICT-DEGRADED: req {res.req_id} converged after recovery "
+                    f"(attempts={res.attempts}, retried_from={res.retried_from}, "
+                    f"evacuated={res.evacuated})"
+                )
+        if problems:
+            log.error("STRICT: " + "; ".join(problems))
+            sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -45,6 +45,7 @@ them.  The host reads one stacked set of values per iteration.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -58,6 +59,7 @@ from repro_torch.core.ranks import Ranks, copy_to, cuda_devices, rank_device, to
 from repro_torch.kernels.vegas_sums import vegas_sums
 from repro_torch.mc import grid as grid_lib
 from repro_torch.mc import stratified
+from repro_torch.telemetry.core import NULL
 
 # A result needs at least this many accumulated (post-warmup) iterations
 # before it may report convergence: with one there is no chi^2 dof, so a
@@ -396,19 +398,40 @@ def drive(
     iterate: Callable,
     callback: Optional[Callable[[int, float, float, float], None]] = None,
     device="cuda",
+    recorder=NULL,
 ) -> VegasResult:
     """The shared host loop: run ``iterate`` (any :func:`make_iterate`, one
     rank or several) to convergence or the iteration cap, one stacked read
-    of (integral, error, chi^2/dof, nonfinite) per iteration."""
+    of (integral, error, chi^2/dof, nonfinite) per iteration.
+
+    ``recorder`` (:mod:`repro_torch.telemetry`) gets the JAX package's
+    events: one ``mc.config`` instant with the grid-damping knobs, and per
+    iteration an ``mc.iterate`` span (around the iterate and its read, so
+    it ends after the device has done the work), an ``mc.iter`` instant and
+    an ``mc.samples_per_s`` gauge, from host numbers only.
+    """
     state = init_state(cfg, device)
     integral = error = chi2 = 0.0
     converged = nonfinite = False
     syncs = 0
+    recorder.event(
+        "mc.config", samples=cfg.mc_samples, bins=cfg.mc_bins, shards=cfg.mc_shards,
+        warmup=cfg.mc_warmup, alpha=cfg.mc_alpha, beta=cfg.mc_beta,
+    )
     for _ in range(cfg.mc_max_iters):
-        state, m = iterate(state)
-        got = read_metrics(m)
+        t0 = time.perf_counter()
+        with recorder.span("mc.iterate"):
+            state, m = iterate(state)
+            got = read_metrics(m)
         syncs += 1
         integral, error, chi2 = (float(got[k][0]) for k in ("integral", "error", "chi2_dof"))
+        if recorder.enabled:
+            dt = time.perf_counter() - t0
+            recorder.event(
+                "mc.iter", it=int(state.it[0]), integral=integral, error=error,
+                chi2_dof=chi2, n_acc=int(state.n_acc[0]),
+            )
+            recorder.gauge("mc.samples_per_s", cfg.mc_samples / max(dt, 1e-9))
         if callback is not None:
             callback(int(state.it[0]), integral, error, chi2)
         if got["nonfinite"][0]:
@@ -439,18 +462,22 @@ def integrate_vegas(
     integrand: Optional[Callable] = None,
     callback: Optional[Callable[[int, float, float, float], None]] = None,
     device="cuda",
+    recorder=NULL,
 ) -> VegasResult:
     """Host-driven VEGAS loop on one device, one host read per iteration.
 
     Convergence is the cubature drivers' budget, ``error <= max(abs_tol,
     |I| * rel_tol)``, on the weighted-average estimate with the
     chi^2-inflated error and at least ``MIN_ACCUMULATED`` accumulated
-    iterations.  Runs on CUDA unless ``device="cpu"``.
+    iterations.  Runs on CUDA unless ``device="cpu"``.  ``recorder``: see
+    :func:`drive`.
     """
     cfg = cfg.validate()
     device = resolve_device(device)
     fn = resolve_fn(cfg, integrand)
-    return drive(cfg, make_iterate(cfg, fn, devices=[device]), callback, device=device)
+    return drive(
+        cfg, make_iterate(cfg, fn, devices=[device]), callback, device=device, recorder=recorder
+    )
 
 
 # --- the service pool: B independent VEGAS problems ------------------------
@@ -509,6 +536,7 @@ class VegasBatchEngine:
         cfg: QuadratureConfig,
         family: Union[ParamIntegrand, str, None] = None,
         devices: Optional[Sequence] = None,
+        recorder=NULL,
     ):
         cfg = cfg.validate()
         if (devices is not None and len(devices) > 1) or (
@@ -530,8 +558,12 @@ class VegasBatchEngine:
         }
         self.n_theta = sum(v.size for v in self.theta_template.values())
         self._dtype = getattr(torch, cfg.dtype)
-        self._fresh = init_state(cfg, self.device)
-        self._iterate = make_iterate(cfg, self.family.fn, has_theta=True, devices=[self.device])
+        self.recorder = recorder
+        with recorder.span("engine.build", backend=self.backend, slots=self.n_slots, devices=1):
+            self._fresh = init_state(cfg, self.device)
+            self._iterate = make_iterate(
+                cfg, self.family.fn, has_theta=True, devices=[self.device]
+            )
 
     # --- state ---------------------------------------------------------------
 

@@ -31,6 +31,7 @@ from repro_torch.mc.engine import (
     make_iterate,
     resolve_fn,
 )
+from repro_torch.telemetry.core import NULL
 
 
 def integrate_vegas_distributed(
@@ -38,6 +39,7 @@ def integrate_vegas_distributed(
     integrand: Optional[Callable] = None,
     devices: Optional[Sequence] = None,
     callback: Optional[Callable[[int, float, float, float], None]] = None,
+    recorder=NULL,
 ) -> VegasResult:
     """VEGAS with the sample shards split over ``devices`` (one entry per
     rank, which may repeat a device; default one rank per visible GPU).
@@ -45,6 +47,7 @@ def integrate_vegas_distributed(
     Requires ``cfg.mc_shards % n_ranks == 0``.  The grid and counts (a few
     hundred KB) live on the first rank and go to the others each iteration;
     only the sample work is divided, which is where the time goes.
+    ``recorder`` gets :func:`~repro_torch.mc.engine.drive`'s events.
     """
     cfg = cfg.validate()
     if devices is None:
@@ -52,14 +55,14 @@ def integrate_vegas_distributed(
     devices = list(devices)
     fn = resolve_fn(cfg, integrand)
     if len(devices) == 1:
-        return integrate_vegas(cfg, fn, callback, device=devices[0])
+        return integrate_vegas(cfg, fn, callback, device=devices[0], recorder=recorder)
     if cfg.mc_shards % len(devices):
         raise ValueError(
             f"mc_shards={cfg.mc_shards} must be divisible by the rank count "
             f"({len(devices)}); shards are the unit of sample division"
         )
     iterate = make_iterate(cfg, fn, devices=devices)
-    return drive(cfg, iterate, callback, device=devices[0])
+    return drive(cfg, iterate, callback, device=devices[0], recorder=recorder)
 
 
 def main() -> None:

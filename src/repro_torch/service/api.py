@@ -27,6 +27,7 @@ from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand
 from repro_torch.service.routing import GracefulScheduler
 from repro_torch.service.scheduler import BatchScheduler, QuadRequest, QuadResult
+from repro_torch.telemetry.core import NULL
 
 
 def _as_theta_list(thetas: Union[Sequence[Any], Any]) -> list[Any]:
@@ -60,9 +61,10 @@ def serve(
     """Stream results for an arbitrary request iterable (convergence order).
 
     Extra keyword arguments (``checkpointer``, ``checkpoint_every``,
-    ``on_tick``, ``fault_injector``, ``max_dispatch_retries``,
-    ``dispatch_timeout_s``, ``retry_backoff_s``, and ``policy`` with
-    ``graceful``) pass through to the scheduler.  ``graceful`` serves
+    ``on_tick``, ``recorder`` (a :class:`repro_torch.telemetry.Recorder`,
+    shared with every engine and pool), ``fault_injector``,
+    ``max_dispatch_retries``, ``dispatch_timeout_s``, ``retry_backoff_s``,
+    and ``policy`` with ``graceful``) pass through to the scheduler.  ``graceful`` serves
     through :class:`GracefulScheduler`: ``capacity`` / ``nonfinite``
     cubature evictions are re-routed once to a VEGAS pool, ``max_iters``
     requests retried at a loosened tolerance.  ``resume=True`` restores the
@@ -79,6 +81,7 @@ def integrate_batch(
     rel_tol: Union[float, Sequence[float], None] = None,
     abs_tol: Union[float, Sequence[float], None] = None,
     devices: Optional[Sequence] = None,
+    recorder=NULL,
 ) -> list[QuadResult]:
     """Integrate a fleet of problems; results in submission order.
 
@@ -86,7 +89,8 @@ def integrate_batch(
     batch axis); ``rel_tol`` / ``abs_tol`` are scalars applied to every
     problem, per-problem sequences, or ``None`` for the ``cfg`` defaults.
     ``family`` defaults to the family named by ``cfg.integrand``.  The
-    results are the same at every rank count.
+    results are the same at every rank count, and with ``recorder`` on or
+    off.
     """
     theta_list = _as_theta_list(thetas)
     n = len(theta_list)
@@ -105,7 +109,7 @@ def integrate_batch(
         for i, (t, r, a) in enumerate(zip(theta_list, rels, abss))
     ]
     results: list[Optional[QuadResult]] = [None] * n
-    for res in serve(cfg, requests, family, devices=devices):
+    for res in serve(cfg, requests, family, devices=devices, recorder=recorder):
         results[res.req_id] = res
     missing = [i for i, r in enumerate(results) if r is None]
     if missing:  # pragma: no cover - invariant guard

@@ -9,10 +9,11 @@ the stores of a rank are stacked along a leading slot axis
 package ``vmap``s the single-store step over that axis; the port writes the
 step once over it, as batched torch operations:
 
-- *evaluate*: the fresh rows of every live slot's window go to the GM kernel
-  in **one** launch over ``n_live × window`` lanes, each slot's theta a
-  column of a compact ``(n_theta, n_live)`` array
-  (``GenzMalikRule.eval_batch(theta_cols=...)``);
+- *evaluate*: the fresh rows of every live slot's window go to the rule in
+  **one** call over ``n_live × window`` rows, each slot's theta a column of
+  a compact ``(n_theta, n_live)`` array (``eval_batch(theta_cols=...)``):
+  one GM kernel launch, or the Gauss-Kronrod rule's torch operations with
+  each row's theta broadcast against its nodes;
 - *advance*: :func:`~repro_torch.core.split.split_compact_rows` over the
   slots that go on, with per-slot budgets and tolerances.
 
@@ -44,7 +45,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core import region_store
+from repro_torch.core import gauss_kronrod, region_store
 from repro_torch.core.adaptive import (
     advance_ladder,
     advance_target,
@@ -64,6 +65,7 @@ from repro_torch.core.redistribution import (
 from repro_torch.core.region_store import FIELDS, masked_sums
 from repro_torch.core.rules import make_rule
 from repro_torch.core.split import ROWS, SCALARS, next_population, split_compact_rows
+from repro_torch.telemetry.core import NULL
 
 # The stacked read of one iteration: one row per value, one column per
 # live slot.
@@ -111,7 +113,9 @@ def estimate_state_bytes(
 ) -> int:
     """Device bytes of the engine's stacked state for ``cfg`` (the JAX
     package's count, so that a CLI can refuse a fleet before allocating
-    ``batch_slots x capacity`` regions)."""
+    ``batch_slots x capacity`` regions), plus, with the Gauss-Kronrod rule,
+    the transient of its evaluation over every slot's store
+    (:func:`~repro_torch.core.gauss_kronrod.transient_bytes`)."""
     cfg = cfg.validate()
     family = _family(cfg, family)
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
@@ -125,7 +129,10 @@ def estimate_state_bytes(
         + len(family.theta_fields) * d * item  # theta
         + 2 * item + 4 + 2  # rel_tol, abs_tol, overflow_it, occupied, done
     )
-    return cfg.batch_slots * per_slot
+    transient = 0
+    if cfg.rule == "gauss_kronrod":
+        transient = gauss_kronrod.transient_bytes(d, cfg.batch_slots * C, item)
+    return cfg.batch_slots * per_slot + transient
 
 
 class BatchEngine:
@@ -139,6 +146,10 @@ class BatchEngine:
     ``["cpu"] * 4``).  The default is ``cfg.service_devices`` ranks (0 = one
     per visible GPU) on the visible GPUs, rank r on cuda:(r mod count); it
     raises when there is none.
+
+    ``recorder`` (:mod:`repro_torch.telemetry`) gets an ``engine.build``
+    span around the construction, as in the JAX engine; the scheduler
+    records everything else.
     """
 
     backend = "cubature"
@@ -148,14 +159,9 @@ class BatchEngine:
         cfg: QuadratureConfig,
         family: Union[ParamIntegrand, str, None] = None,
         devices: Optional[Sequence] = None,
+        recorder=NULL,
     ):
         cfg = cfg.validate()
-        if cfg.rule != "genz_malik":
-            raise NotImplementedError(
-                "the batch service evaluates through the GM kernel; the "
-                "Gauss-Kronrod rule takes one theta per rule (use "
-                "repro_torch.core.adaptive.integrate)"
-            )
         self.cfg = cfg
         self.family = _family(cfg, family)
         if devices is None:
@@ -174,31 +180,36 @@ class BatchEngine:
         self.rebalance_cap = min(cfg.rebalance_cap, self.slots_per_rank)
         self._rebalance_on = self.n_ranks > 1 and cfg.rebalance != "off"
         self.schedule = make_schedule(self.n_ranks)
-        # evaluate steps of each rank (one GM launch each) since construction
-        self.eval_steps = np.zeros(self.n_ranks, np.int64)
+        self.recorder = recorder
+        with recorder.span(
+            "engine.build", backend=self.backend, slots=self.n_slots, devices=self.n_ranks
+        ):
+            # evaluate steps of each rank (one rule evaluation each: one GM
+            # launch with the GM rule) since construction
+            self.eval_steps = np.zeros(self.n_ranks, np.int64)
 
-        lo = np.asarray(cfg.lo(), np.float64)
-        hi = np.asarray(cfg.hi(), np.float64)
-        self._total_volume = float(np.prod(hi - lo))
-        self._dtype = getattr(torch, cfg.dtype)
-        self._n_init = cfg.resolved_n_init()
-        self._rule = make_rule(cfg, self.family, device=self.ranks.first)
-        self._ladder = eval_ladder(cfg)
-        self._adv_ladder = advance_ladder(cfg)
-        self.theta_template = {
-            k: np.zeros(np.shape(v), np.float64)
-            for k, v in self.family.sample_theta(cfg.d, np.random.default_rng(0)).items()
-        }
-        self.n_theta = sum(v.size for v in self.theta_template.values())
-        # per device: the fresh single-slot store spliced in on admit, and
-        # the domain width the classifier reads
-        self._fresh, self._width = {}, {}
-        for dev in self.ranks.devices:
-            if dev not in self._fresh:
-                self._fresh[dev] = region_store.init_state(
-                    cfg.capacity, lo, hi, self._n_init, self._dtype, dev
-                )
-                self._width[dev] = torch.as_tensor(hi - lo, device=dev)
+            lo = np.asarray(cfg.lo(), np.float64)
+            hi = np.asarray(cfg.hi(), np.float64)
+            self._total_volume = float(np.prod(hi - lo))
+            self._dtype = getattr(torch, cfg.dtype)
+            self._n_init = cfg.resolved_n_init()
+            self._rule = make_rule(cfg, self.family, device=self.ranks.first)
+            self._ladder = eval_ladder(cfg)
+            self._adv_ladder = advance_ladder(cfg)
+            self.theta_template = {
+                k: np.zeros(np.shape(v), np.float64)
+                for k, v in self.family.sample_theta(cfg.d, np.random.default_rng(0)).items()
+            }
+            self.n_theta = sum(v.size for v in self.theta_template.values())
+            # per device: the fresh single-slot store spliced in on admit, and
+            # the domain width the classifier reads
+            self._fresh, self._width = {}, {}
+            for dev in self.ranks.devices:
+                if dev not in self._fresh:
+                    self._fresh[dev] = region_store.init_state(
+                        cfg.capacity, lo, hi, self._n_init, self._dtype, dev
+                    )
+                    self._width[dev] = torch.as_tensor(hi - lo, device=dev)
 
     # --- state construction --------------------------------------------------
 
@@ -346,7 +357,7 @@ class BatchEngine:
         g = {k: getattr(regions, k)[idx, :wa] for k in ROWS}
         g.update({k: getattr(regions, k)[idx] for k in SCALARS + ("n_evals", "it")})
 
-        # --- evaluate: one GM launch over every live slot's eval window ------
+        # --- evaluate: one rule call over every live slot's eval window -----
         need = g["active"][:, :ew] & g["fresh"][:, :ew]
         est, err, axis = rule.eval_batch(
             g["centers"][:, :ew].reshape(n * ew, d),

@@ -29,7 +29,8 @@ from typing import Iterable, Iterator, Optional, Sequence, Union
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand
 from repro_torch.service.scheduler import BatchScheduler, QuadRequest, QuadResult
-from repro_torch.service.stats import ServiceStats
+from repro_torch.telemetry.core import NULL
+from repro_torch.telemetry.stats import ServiceStats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,9 @@ class GracefulScheduler:
 
     ``last_stats`` sums the :class:`ServiceStats` of every pool field by
     field, plus ``reroutes`` (fallback re-admissions of both kinds).
+    ``recorder`` is shared with every pool; each re-admission is a
+    ``service.reroute`` flow (an arrow in the Chrome trace) and bumps the
+    ``service.reroutes`` counter.
     Keyword arguments (``on_tick``, the checkpointer, and the rank-loss
     arguments ``fault_injector``, ``max_dispatch_retries``,
     ``dispatch_timeout_s``) go to the primary pool only: the VEGAS pool has
@@ -81,10 +85,14 @@ class GracefulScheduler:
         family: Union[ParamIntegrand, str, None] = None,
         devices: Optional[Sequence] = None,
         policy: Optional[ReroutePolicy] = None,
+        recorder=NULL,
         **scheduler_kwargs,
     ):
         self.policy = (policy or ReroutePolicy()).validate()
-        self.primary = BatchScheduler(cfg, family, devices=devices, **scheduler_kwargs)
+        self.recorder = recorder
+        self.primary = BatchScheduler(
+            cfg, family, devices=devices, recorder=recorder, **scheduler_kwargs
+        )
         self.cfg = self.primary.cfg
         self.family = self.primary.engine.family
         self._vegas_pool: Optional[BatchScheduler] = None
@@ -100,7 +108,8 @@ class GracefulScheduler:
         if self._vegas_pool is None:
             cfg = dataclasses.replace(self.cfg, backend="vegas", service_devices=1)
             self._vegas_pool = BatchScheduler(
-                cfg, self.family, devices=[self.primary.engine.ranks.first]
+                cfg, self.family, devices=[self.primary.engine.ranks.first],
+                recorder=self.recorder,
             )
         return self._vegas_pool
 
@@ -108,9 +117,20 @@ class GracefulScheduler:
         self, requests: Iterable[QuadRequest], resume: bool = False
     ) -> Iterator[QuadResult]:
         policy = self.policy
+        rec = self.recorder
         stats = ServiceStats()
         self._stats = stats
         by_id: dict[int, QuadRequest] = {}
+
+        def record_reroutes(results, to_backend: str) -> None:
+            stats.add("reroutes", len(results))
+            rec.count("service.reroutes", len(results))
+            if rec.enabled:
+                for r in results:
+                    rec.flow(
+                        "service.reroute", None, None, req_id=r.req_id,
+                        from_status=r.status, to_backend=to_backend,
+                    )
 
         def recording(stream):
             for req in stream:
@@ -148,7 +168,7 @@ class GracefulScheduler:
         # population is small by construction, so a dedicated pass beats
         # holding primary slots.  Each serve() builds fresh state.
         if reroute:
-            stats.add("reroutes", len(reroute))
+            record_reroutes(reroute, "vegas")
             pool = self._vegas()
             yield from retried(
                 pool.serve([by_id[r.req_id] for r in reroute]),
@@ -157,7 +177,7 @@ class GracefulScheduler:
             stats.merge(ServiceStats.from_dict(pool.last_stats))
 
         if relax:
-            stats.add("reroutes", len(relax))
+            record_reroutes(relax, primary_backend)
             cfg = self.cfg
             retries = []
             for r in relax:

@@ -43,6 +43,17 @@ largest set of surviving ranks, and regrown once the rank heals.  A rank is
 the JAX package's mesh device: one host process drives every rank
 (:mod:`repro_torch.core.ranks`), and a lost rank is one that the fault
 injector marks down.
+
+A ``recorder`` (:mod:`repro_torch.telemetry`) gets the JAX scheduler's
+events at the same dispatch boundaries: the ``service.*`` spans (admit,
+compile / dispatch, collect, checkpoint, evacuate, mesh shrink and regrow),
+instants and counters (every :class:`ServiceStats` bump), the
+``service.dispatch_wall_s`` / ``service.queue_wait_s`` histograms, the
+per-rank ``service.n_live`` and the ``service.window`` gauges, and the
+migration, evacuation and reroute flows.  A lane is a rank index (the
+JAX package's mesh device), never a CUDA ordinal: ranks may share a card.
+Everything comes from host values the loop holds anyway (the host masks of
+the engine's metrics), so the recorder adds no device read.
 """
 
 from __future__ import annotations
@@ -59,7 +70,8 @@ from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand
 from repro_torch.mc.engine import VegasBatchEngine
 from repro_torch.service.batch_engine import BatchEngine, BatchState
-from repro_torch.service.stats import ServiceStats
+from repro_torch.telemetry.core import NULL
+from repro_torch.telemetry.stats import ServiceStats
 
 
 
@@ -158,14 +170,15 @@ def make_engine(
     cfg: QuadratureConfig,
     family: Union[ParamIntegrand, str, None] = None,
     devices: Optional[Sequence] = None,
+    recorder=NULL,
 ) -> Union[BatchEngine, VegasBatchEngine]:
     """Engine for ``cfg``'s resolved backend: the cubature
     :class:`BatchEngine`, or the single-rank VEGAS pool (``backend="auto"``
     resolves by dimension, so high-d fleets are served by MC instead of
     exploding the region stores)."""
     if cfg.resolved_backend() == "vegas":
-        return VegasBatchEngine(cfg, family, devices=devices)
-    return BatchEngine(cfg, family, devices=devices)
+        return VegasBatchEngine(cfg, family, devices=devices, recorder=recorder)
+    return BatchEngine(cfg, family, devices=devices, recorder=recorder)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,6 +308,9 @@ class BatchScheduler:
     ``batch_slots``, and the fleet serves on.  A later admission tick
     regrows the rank set once the injector reports the rank healthy.  All
     of it happens between dispatches.
+
+    ``recorder`` (default the no-op ``NULL``) gets the events listed in the
+    module docstring and is passed to every engine the scheduler builds.
     """
 
     def __init__(
@@ -306,11 +322,13 @@ class BatchScheduler:
         checkpointer=None,
         checkpoint_every: int = 0,
         on_tick: Optional[Callable] = None,
+        recorder=NULL,
         fault_injector=None,
         max_dispatch_retries: int = 2,
         dispatch_timeout_s: Optional[float] = None,
         retry_backoff_s: float = 0.1,
     ):
+        self.recorder = recorder
         if engine is not None:
             if devices is not None:
                 raise ValueError(
@@ -319,7 +337,7 @@ class BatchScheduler:
                 )
             self.engine = engine
         else:
-            self.engine = make_engine(cfg, family, devices=devices)
+            self.engine = make_engine(cfg, family, devices=devices, recorder=recorder)
         self.cfg = self.engine.cfg
         if checkpoint_every < 0:
             raise ValueError(f"checkpoint_every must be >= 0, got {checkpoint_every}")
@@ -337,6 +355,10 @@ class BatchScheduler:
         self.dispatch_timeout_s = dispatch_timeout_s
         self.retry_backoff_s = retry_backoff_s
         self._stats = ServiceStats()
+        # the first dispatch of an engine builds the kernels on first use:
+        # its span is "service.compile", as the JAX scheduler's first
+        # dispatch traces and compiles
+        self._warm = False
         # The rank set.  Ranks are named by their index among the engine's
         # ORIGINAL ranks for the scheduler's lifetime: the injector's rank
         # ids and the regrow target speak this namespace.  The VEGAS pool
@@ -373,8 +395,11 @@ class BatchScheduler:
         """A new engine on the given original ranks' devices (its migration
         schedule follows the new rank count)."""
         devices = [self._all_devices[i] for i in dev_indices]
-        self.engine = make_engine(self.cfg, self.engine.family, devices=devices)
+        self.engine = make_engine(
+            self.cfg, self.engine.family, devices=devices, recorder=self.recorder
+        )
         self._current_devs = list(dev_indices)
+        self._warm = False
         return self.engine
 
     def _attribute_fault(self, err: Exception, it: int) -> Optional[int]:
@@ -424,10 +449,22 @@ class BatchScheduler:
         evac_attempts: dict = {}  # req_id -> extra admissions consumed
         evac_from: dict = {}  # req_id -> status that triggered the retry
         evac_kind: dict = {}  # req_id -> "snapshot" | "readmit"
+        rec = self.recorder
         stats = ServiceStats()
         self._stats = stats
+
+        def bump(counter: str, n: int = 1) -> None:
+            # one typed schema and one event stream: every host-loop counter
+            # bump lands in ServiceStats and (when enabled) the recorder
+            stats.add(counter, n)
+            rec.count(f"service.{counter}", n)
+
         it = 0
         ticks = 0  # admission passes completed (the checkpoint cadence's unit)
+        rec.event(
+            "service.start", backend=engine.backend, slots=B, devices=engine.n_ranks,
+            sync_every=cfg.sync_every, admit_every=cfg.admit_every, resume=resume,
+        )
 
         if resume:
             if self.checkpointer is None:
@@ -488,15 +525,23 @@ class BatchScheduler:
             return order
 
         def admit_free_slots(state):
-            for slot in admission_order():
-                req = pull()
-                if req is None:
-                    break
-                state = engine.admit(state, slot, req.theta, req.rel_tol, req.abs_tol)
-                slot_req[slot] = req
-                slot_admitted[slot] = it
-                slot_wall[slot] = time.monotonic()
-                stats.add("admissions")
+            with rec.span("service.admit", it=it) as sp:
+                n_admitted = 0
+                for slot in admission_order():
+                    req = pull()
+                    if req is None:
+                        break
+                    state = engine.admit(state, slot, req.theta, req.rel_tol, req.abs_tol)
+                    slot_req[slot] = req
+                    slot_admitted[slot] = it
+                    slot_wall[slot] = time.monotonic()
+                    n_admitted += 1
+                    bump("admissions")
+                    rec.event(
+                        "service.admission", lane=slot // engine.slots_per_rank,
+                        req_id=req.req_id, slot=slot, it=it,
+                    )
+                sp["admitted"] = n_admitted
             return state
 
         def admission_tick(state):
@@ -517,10 +562,14 @@ class BatchScheduler:
                     self._failed.difference_update(restored)
                     target = self._healthy_mesh()
                     if len(target) > engine.n_ranks:
-                        host = engine.to_host(state)
-                        engine = self._rebuild_engine(target)
-                        state = engine.place(host)
-                        stats.add("mesh_regrows")
+                        with rec.span("service.mesh_regrow", it=it, devices=len(target)):
+                            host = engine.to_host(state)
+                            engine = self._rebuild_engine(target)
+                            state = engine.place(host)
+                        bump("mesh_regrows")
+                        rec.event(
+                            "service.mesh_regrow", it=it, devices=len(target), restored=restored
+                        )
             state = admit_free_slots(state)
             ticks += 1
             if (
@@ -540,8 +589,9 @@ class BatchScheduler:
                         if slot_req[s] is not None
                     ],
                 }
-                self.checkpointer.save(it, engine.to_host(state), meta)
-                stats.add("checkpoints")
+                with rec.span("service.checkpoint", it=it, ticks=ticks):
+                    self.checkpointer.save(it, engine.to_host(state), meta)
+                bump("checkpoints")
             return state
 
         def apply_moves(rows: np.ndarray) -> None:
@@ -560,7 +610,13 @@ class BatchScheduler:
                 slot_admitted[dst] = snapshot_adm[src]
                 slot_wall[dst] = snapshot_wall[src]
                 slot_req[src] = None
-            stats.add("migrations", len(valid))
+                if rec.enabled:
+                    rec.flow(
+                        "service.migrate", src // engine.slots_per_rank,
+                        dst // engine.slots_per_rank, req_id=snapshot_req[src].req_id,
+                        src_slot=src, dst_slot=dst, it=it,
+                    )
+            bump("migrations", len(valid))
 
         def evacuate_and_shrink(state, dev: int):
             """Recover the lost rank's slots and rebuild on the survivors.
@@ -580,44 +636,68 @@ class BatchScheduler:
             S = engine.slots_per_rank
             local = self._current_devs.index(dev)
             self._failed.add(dev)
+            rec.event("service.device_lost", device=dev, it=it)
             target = self._healthy_mesh()
-            # The fault fired at the dispatch boundary, before the engine
-            # touched the state, so it is intact.  A real loss would lose
-            # the lost rank's rows: exactly the rows rewound or released
-            # below.
-            host = engine.to_host(state)
-            snap = snap_meta = None
-            if self.checkpointer is not None:
-                try:
-                    snap, snap_meta, _ = self.checkpointer.restore_host(host)
-                except FileNotFoundError:
-                    pass
-            snap_slots = {}
-            if snap_meta is not None:
-                snap_slots = {int(e["slot"]): int(e["req"]["req_id"]) for e in snap_meta["slots"]}
-            for s in range(local * S, (local + 1) * S):
-                req = slot_req[s]
-                if req is None:
-                    continue
-                if snap is not None and snap_slots.get(s) == req.req_id:
-                    # rewind the slot to the snapshot row for row (masks
-                    # included); the replay derives the lost refinement again
-                    for k, v in host.items():
-                        v[s] = snap[k][s]
-                    evac_kind[req.req_id] = "snapshot"
-                    slot_wall[s] = time.monotonic()  # the wall SLO restarts
-                else:
-                    host["occupied"][s] = False
-                    host["done"][s] = False
-                    retry_queue.append(req)
-                    evac_attempts[req.req_id] = evac_attempts.get(req.req_id, 0) + 1
-                    evac_from[req.req_id] = "device_lost"
-                    evac_kind[req.req_id] = "readmit"
-                    slot_req[s] = None
-                stats.add("evacuations")
-            engine = self._rebuild_engine(target)
-            state = engine.place(host)
-            stats.add("mesh_shrinks")
+            new_per = B // len(target)
+            with rec.span("service.evacuate", it=it, device=dev) as sp:
+                # The fault fired at the dispatch boundary, before the engine
+                # touched the state, so it is intact.  A real loss would lose
+                # the lost rank's rows: exactly the rows rewound or released
+                # below.
+                host = engine.to_host(state)
+                snap = snap_meta = None
+                if self.checkpointer is not None:
+                    try:
+                        snap, snap_meta, _ = self.checkpointer.restore_host(host)
+                    except FileNotFoundError:
+                        pass
+                snap_slots = {}
+                if snap_meta is not None:
+                    snap_slots = {
+                        int(e["slot"]): int(e["req"]["req_id"]) for e in snap_meta["slots"]
+                    }
+                recovered = readmitted = 0
+                for s in range(local * S, (local + 1) * S):
+                    req = slot_req[s]
+                    if req is None:
+                        continue
+                    if snap is not None and snap_slots.get(s) == req.req_id:
+                        # rewind the slot to the snapshot row for row (masks
+                        # included); the replay derives the lost refinement again
+                        for k, v in host.items():
+                            v[s] = snap[k][s]
+                        evac_kind[req.req_id] = "snapshot"
+                        slot_wall[s] = time.monotonic()  # the wall SLO restarts
+                        kind = "snapshot"
+                        recovered += 1
+                    else:
+                        host["occupied"][s] = False
+                        host["done"][s] = False
+                        retry_queue.append(req)
+                        evac_attempts[req.req_id] = evac_attempts.get(req.req_id, 0) + 1
+                        evac_from[req.req_id] = "device_lost"
+                        evac_kind[req.req_id] = "readmit"
+                        slot_req[s] = None
+                        kind = "readmit"
+                        readmitted += 1
+                    bump("evacuations")
+                    if rec.enabled:
+                        # lanes are original rank indices: src the lost
+                        # rank, dst the slot row's new owner; "via", not
+                        # "kind", which is the event envelope's own key
+                        rec.flow(
+                            "service.evacuate", dev, target[s // new_per],
+                            req_id=req.req_id, slot=s, it=it, via=kind,
+                        )
+                sp["recovered"] = recovered
+                sp["readmitted"] = readmitted
+            with rec.span("service.mesh_shrink", it=it, devices=len(target), failed=dev):
+                engine = self._rebuild_engine(target)
+                state = engine.place(host)
+            bump("mesh_shrinks")
+            rec.event(
+                "service.mesh_shrink", it=it, devices=len(target), failed=sorted(self._failed)
+            )
             return state
 
         def result(req, slot, ms, k, status) -> QuadResult:
@@ -636,6 +716,11 @@ class BatchScheduler:
                 evacuated=evac_kind.pop(req.req_id, None),
             )
 
+        # Dispatch-latency views: each dispatch's wall time and the host's
+        # queue wait between dispatches (admission, collection, snapshots,
+        # the consumer of the results: everything the devices idle
+        # through), on the recorder's clock at dispatch boundaries.
+        last_dispatch_end: Optional[float] = None
         if not resume:
             # on resume the snapshot was taken at a tick boundary, right
             # after its admissions: the next host decision is the dispatch
@@ -665,38 +750,70 @@ class BatchScheduler:
                     return None
                 return engine.run(state, max_steps, it)
 
-            attempt = 0
+            it0 = it
             evacuated = False
-            while True:
-                try:
-                    state, ms, executed, moved = _call_with_timeout(
-                        attempt_dispatch, self.dispatch_timeout_s
-                    )
-                    break
-                except (DeviceLostError, DispatchTimeout) as err:
-                    dev = self._attribute_fault(err, it)
-                    if attempt < self.max_dispatch_retries:
-                        # transient until proven permanent: bounded retries
-                        # with exponential backoff
-                        attempt += 1
-                        stats.add("dispatch_retries")
-                        if self.retry_backoff_s > 0:
-                            time.sleep(self.retry_backoff_s * 2 ** (attempt - 1))
-                        continue
-                    if dev is None:
-                        raise  # unattributable: nothing to evacuate
-                    state = evacuate_and_shrink(state, dev)
-                    evacuated = True
-                    break
+            if rec.enabled:
+                t_dispatch0 = rec.clock()
+                if last_dispatch_end is not None:
+                    rec.observe("service.queue_wait_s", t_dispatch0 - last_dispatch_end, it=it)
+            with rec.span(
+                "service.dispatch" if self._warm else "service.compile",
+                it=it, max_steps=max_steps,
+            ) as sp:
+                attempt = 0
+                while True:
+                    try:
+                        state, ms, executed, moved = _call_with_timeout(
+                            attempt_dispatch, self.dispatch_timeout_s
+                        )
+                        k = int(np.sum(executed))
+                        break
+                    except (DeviceLostError, DispatchTimeout) as err:
+                        dev = self._attribute_fault(err, it)
+                        rec.event(
+                            "service.dispatch_fault", it=it, device=dev, attempt=attempt,
+                            error=type(err).__name__,
+                        )
+                        if attempt < self.max_dispatch_retries:
+                            # transient until proven permanent: bounded retries
+                            # with exponential backoff
+                            attempt += 1
+                            bump("dispatch_retries")
+                            if self.retry_backoff_s > 0:
+                                time.sleep(self.retry_backoff_s * 2 ** (attempt - 1))
+                            continue
+                        if dev is None:
+                            raise  # unattributable: nothing to evacuate
+                        state = evacuate_and_shrink(state, dev)
+                        evacuated = True
+                        k = 0
+                        break
+                sp["executed"] = k
             if evacuated:
                 # no iteration ran: dispatch the same ``it`` again on the
                 # smaller rank set (re-admissions wait for their admit tick,
-                # as any queued request does)
+                # as any queued request does).  No wall sample either: the
+                # next dispatch's queue wait takes the whole recovery gap.
                 continue
-            k = int(np.sum(executed))
+            if rec.enabled:
+                last_dispatch_end = rec.clock()
+                rec.observe("service.dispatch_wall_s", last_dispatch_end - t_dispatch0, it=it0)
+            self._warm = True
             assert k >= 1, "dispatch executed no iterations"
-            stats.add("dispatches")
-            stats.add("iterations", k)
+            bump("dispatches")
+            bump("iterations", k)
+            if rec.enabled:
+                # Per-rank live-slot occupancy at every executed iteration
+                # (the Fig. 4b input), from the host masks the engine
+                # returned: no device read.
+                n = engine.n_ranks
+                occ = np.asarray(ms["occupied"][:k]).reshape(k, n, engine.slots_per_rank)
+                n_live = occ.sum(axis=2)
+                for t in range(k):
+                    for r in range(n):
+                        rec.gauge("service.n_live", int(n_live[t, r]), lane=r, it=it0 + t + 1)
+                if engine.backend == "cubature":  # the eval-window rung
+                    rec.gauge("service.window", int(np.max(ms["window"][k - 1])), it=it0 + k)
             for t in range(k - 1):
                 it += 1
                 apply_moves(moved[t])
@@ -709,20 +826,28 @@ class BatchScheduler:
                 if done[s] and occupied[s] and slot_req[s] is not None
             ]
             # req_id order: the same at every rank count (collection within
-            # one iteration has no inherent slot order)
+            # one iteration has no inherent slot order).  The results are
+            # built inside the collect span and yielded after it closes: a
+            # span open across a yield would time the consumer.
             collected: list[QuadResult] = []
-            for req_id, slot in sorted(finished):
-                status = engine.status_of(
-                    bool(ms["converged"][k - 1][slot]),
-                    int(ms["n_active"][k - 1][slot]),
-                    int(ms["it"][k - 1][slot]),
-                    bool(ms["overflowed"][k - 1][slot]),
-                    bool(ms["nonfinite"][k - 1][slot]),
-                )
-                stats.add("collections")
-                if status == "nonfinite":
-                    stats.add("quarantines")
-                collected.append(result(slot_req[slot], slot, ms, k, status))
+            if finished:
+                with rec.span("service.collect", it=it, n=len(finished)):
+                    for req_id, slot in sorted(finished):
+                        status = engine.status_of(
+                            bool(ms["converged"][k - 1][slot]),
+                            int(ms["n_active"][k - 1][slot]),
+                            int(ms["it"][k - 1][slot]),
+                            bool(ms["overflowed"][k - 1][slot]),
+                            bool(ms["nonfinite"][k - 1][slot]),
+                        )
+                        bump("collections")
+                        if status == "nonfinite":
+                            bump("quarantines")
+                        rec.event(
+                            "service.collected", lane=slot // engine.slots_per_rank,
+                            req_id=req_id, slot=slot, status=status, it=it,
+                        )
+                        collected.append(result(slot_req[slot], slot, ms, k, status))
             yield from collected
             # migrations of the final iteration happened after its metrics
             # (and done slots never migrate), so the map update follows
@@ -746,7 +871,11 @@ class BatchScheduler:
                 )
                 if not (over_wall or over_evals):
                     continue
-                stats.add("deadlines")
+                bump("deadlines")
+                rec.event(
+                    "service.deadline", lane=slot // engine.slots_per_rank, req_id=req.req_id,
+                    slot=slot, it=it, over_wall=over_wall, over_evals=over_evals,
+                )
                 yield result(req, slot, ms, k, "deadline")
                 state = engine.release(state, slot)
                 slot_req[slot] = None
@@ -764,3 +893,5 @@ class BatchScheduler:
             raise RuntimeError(
                 f"scheduler exited with queued requests (req_id={leftover.req_id})"
             )
+        rec.event("service.drain", it=it, **stats.as_dict())
+        rec.flush()

@@ -10,14 +10,21 @@ and 8 ranks up to ``n_ranks``, with the rebalancer off and with the
 advance unwindowed on the most ranks, and asserts that every
 :class:`QuadResult` (integral, error, status, iterations, n_evals,
 admitted_at, finished_at) is the same in every run, and that the
-drain-heavy case migrates.  The ranks run on the CPU (``cpu``) or on the
-visible GPUs (``cuda``, the default: rank r on cuda:(r mod count)).
-Prints ``RESULT_JSON:`` and the summary.
+drain-heavy case migrates.  The drain-heavy case is replayed once more on
+the most ranks with a telemetry recorder attached: the same results bit for
+bit, one ``service.migrate`` flow per migration, a Chrome trace that passes
+:func:`repro_torch.telemetry.check.check_trace`, and the per-rank idle
+fraction equal to its formula recomputed from the raw gauge events.  The
+ranks run on the CPU (``cpu``) or on the visible GPUs (``cuda``, the
+default: rank r on cuda:(r mod count)).  Prints ``RESULT_JSON:`` and the
+summary.
 """
 
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 
 import numpy as np
 
@@ -84,6 +91,57 @@ def cases(family, d=2):
     }
 
 
+def telemetry_replay(cfg, family, make_reqs, devices, want) -> dict:
+    """The recorder-on replay of one case on ``devices``: raises unless its
+    results are ``want`` bit for bit, it records one ``service.migrate``
+    flow per migration (at least one when there are several ranks), its
+    Chrome trace passes the checker, and the idle fraction of every rank
+    equals 1 - occupied slot-iterations / capacity recomputed by hand from
+    the ``service.n_live`` gauges."""
+    from repro_torch.service.scheduler import BatchScheduler
+    from repro_torch.telemetry import MemorySink, Recorder, loadview
+    from repro_torch.telemetry.check import check_trace
+    from repro_torch.telemetry.trace import write_chrome_trace
+
+    c = len(devices)
+    sink = MemorySink()
+    rec = Recorder(sinks=(sink,))
+    sched = BatchScheduler(cfg, family, devices=devices, recorder=rec)
+    got = tuples(sched.serve(make_reqs()))
+    rec.close()
+    assert got == want, (
+        "recorder-on run diverged from recorder-off run",
+        [a for a, b in zip(got, want) if a != b][:2],
+    )
+    flows = [e for e in sink.events if e["kind"] == "flow_begin" and e["name"] == "service.migrate"]
+    assert len(flows) == sched.last_stats["migrations"], (len(flows), sched.last_stats)
+    assert c == 1 or flows, sched.last_stats
+    per_rank = cfg.batch_slots // c
+    tl = loadview.occupancy_from_events(sink.events)
+    assert tl.devices == list(range(c)), tl.devices
+    idle = loadview.idle_fraction(tl, per_rank)
+    occ, its = {}, set()
+    for e in sink.events:
+        if e["kind"] == "gauge" and e["name"] == "service.n_live":
+            occ[e["lane"]] = occ.get(e["lane"], 0.0) + e["value"]
+            its.add(e["it"])
+    for r in range(c):
+        hand = 1.0 - occ.get(r, 0.0) / (len(its) * per_rank)
+        assert abs(idle[r] - hand) < 1e-12, (r, idle[r], hand)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        write_chrome_trace(path, sink.events)
+        problems = check_trace(path, n_devices=c, expect_flow=c > 1)
+        assert not problems, problems
+    return {
+        "devices": c,
+        "parity": True,
+        "migration_flows": len(flows),
+        "idle_fraction": [idle[r] for r in range(c)],
+        "trace_check": "ok",
+    }
+
+
 def run(n_ranks: int = 4, kind: str = "cuda") -> dict:
     """Run every case at 1, 2, 4 and 8 ranks up to ``n_ranks``; returns the
     summary, with each case's result tuples (raises if any run differs)."""
@@ -127,6 +185,11 @@ def run(n_ranks: int = 4, kind: str = "cuda") -> dict:
             "admitted_at": sorted({t[6] for t in ref}),
             "results": ref,
         }
+
+        if name == "rebalanced":
+            out["cases"][name]["telemetry"] = telemetry_replay(
+                cfg, family, make_reqs, devices(counts[-1]), per_count[counts[-1]]
+            )
 
     for c in counts[1:]:
         assert out["cases"]["rebalanced"]["migrations"][c] > 0, out

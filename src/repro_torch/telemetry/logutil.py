@@ -35,5 +35,12 @@ def setup_logging(
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter("%(message)s"))
         logger.addHandler(handler)
+    else:
+        # a CLI run in process (``main(argv)``) writes to the sys.stdout of
+        # this call, which a caller may have replaced (and closed) since the
+        # last one: assigned, not setStream(), which flushes the old stream
+        for handler in logger.handlers:
+            if isinstance(handler, logging.StreamHandler):
+                handler.stream = sys.stdout
     logger.propagate = False
     return logger
