@@ -105,6 +105,25 @@ Phases, each of which passes or raises (a failure exits nonzero):
    rank 2 lost at iteration 3 and back at 9, --trace, --metrics and
    --strict; both exit 0 and their files pass the telemetry checker.
 
+14. the performance observatory (repro_torch.perf) and the examples: (a)
+   the machine file (matmul, saxpy, reduction probes with CUDA events),
+   its rates beside the card's name and power limit; (b) the kernel
+   catalog at its card-scale configs, every entry logged; the gm_eval
+   entries at B = 2^20 count exactly the operations and bytes of the bound
+   column that PERF.md's kernel rows have used since the port's first
+   kernel (GM_COUNTS), as phase 8's _bounds does, and every entry launched the kernels its kind launches (one
+   GM launch per evaluate step); (c) the report from (a), (b) and phase
+   13c's serve_quad metrics, with its four sections (files under
+   build/perf_torch/); (d) a torch lambda f4 through integrate at phase
+   4's f4 case: no GM launch (the rule's torch route), phase 4's status,
+   iterations and evaluations, the integral within 1e-12 relative; again
+   with the torch route's blocks cut to 2^16 regions (more integrand
+   calls, the same bits, no GM launch); the same callable through
+   integrate_device (integrate's bits) and four ring
+   ranks (phase 6's iterations and evaluations per rank); (e) the
+   three examples (examples/torch_*.py) in process, each within its bar,
+   and ring's mean imbalance below off's.
+
 Last, the sums kernel timed at gm_perf.py's SUMS_TIMED shapes (phase 10's
 d=15 and f6 cases, phase 11a's pool): per call, its chunk and combine
 launches, the plain version, index_add_ alone and the byte bound.
@@ -139,6 +158,10 @@ FP64_LANES_PER_SM = 64
 # (iterations, n_evals) of each MAIN_CASES run, exact: the kernel's
 # redesign keeps its results, so the adaptive run takes the same path
 EXPECTED_PATH = {"f4": (29, 392709984), "genz_gaussian": (25, 10851868416), "f6": (27, 1713618)}
+# (operations, bytes) of the GM kernel's bound at B = 2^20 (TIMED_B), as the
+# bound column of PERF.md's kernel rows has counted them since the port's
+# first kernel
+GM_COUNTS = {("f4", 5): (1699741696, 150994944), ("genz_gaussian", 8): (14350811136, 226492416)}
 # distributed cases: (integrand, d, rel_tol, redistribution), four ranks,
 # capacity 2^22 per rank (each GPU holds its own store, as in the paper)
 DIST_CASES = [
@@ -162,6 +185,8 @@ EXPECTED_DIST = {
 # (iterations, n_evals) are those of the port's CPU run.
 GK_CASES = [("f3", 3, 1e-7), ("f4", 2, 1e-8)]
 EXPECTED_GK = {"f3": (0, 27000), "f4": (5, 14400)}
+# phase 14's machine file, catalog and report (gitignored)
+PERF_DIR = os.path.join(HERE, "build", "perf_torch")
 # float64 kernel vs plain version: the bar of tests/test_kernels.py, and the
 # parity the kernel keeps (it repeats the plain version's operations)
 RTOL64 = 1e-12
@@ -600,51 +625,36 @@ def phase_gauss_kronrod():
         assert abs(res.integral - cpu.integral) <= cpu.error, row
 
 
-# FP64 instructions of the two timed integrands in the kernel's table form
-# (integrands.cuh): per term x - 0.5, t * t (f4) or x - u, a * t, t * t
-# (genz_gaussian); per finish -625 * s, exp (f4) or exp(-s), whose negation
-# is an operand modifier (genz_gaussian); exp counted as one instruction.
-TERM_INSTR = {"f4": 2, "genz_gaussian": 3}
-FINISH_INSTR = {"f4": 2, "genz_gaussian": 1}
-
-
 def _bounds(name, d, b, sms, clock_hz):
-    """Two yardsticks of the kernel's time at ``b`` regions, in ms.
+    """Two yardsticks of the kernel's time at ``b`` regions, in ms, from
+    the counts of ``repro_torch.perf.catalog.gm_eval_counts``.
 
     ``bound_ms`` is the bound of the port's first kernel, kept so that the
     rows of PERF.md compare: the larger of bytes / HBM rate and operations
-    / 34 TFLOP/s, with n_nodes(d) * (the plain integrand's per-point work)
-    + 4d + 20 operations per region.  Those operations recompute every
-    axis's factor at every node, which the table form does not, and the
-    rate counts an FMA as two operations while the kernel, built with
-    -fmad=false, issues adds and multiplies: it is a shared yardstick, not
-    a least time of this kernel.
+    / 34 TFLOP/s (the FP64 vector rate of the h100-sxm preset), with
+    n_nodes(d) * (the plain integrand's per-point work) + 4d + 20 operations
+    per region.  Those operations recompute every axis's factor at every
+    node, which the table form does not, and the rate counts an FMA as two
+    operations while the kernel, built with -fmad=false, issues adds and
+    multiplies: it is a shared yardstick, not a least time of this kernel.
 
     ``instr_bound_ms`` is the time of the table form's FP64 instructions at
     the FP64 issue rate (64 lanes per SM at the card's largest SM clock),
-    or of the bytes if longer: the 8d coordinates (4d products lambda * h,
-    8d adds and subtracts), 9d terms, and per node its d - 1 folds, its
-    finish and one add into its group's sum; the scale (d - 1), the fourth
-    differences (6d + 1) and the weighted sums (22).  Each exp counts as
-    one instruction (``exps`` is their number; the math library takes
-    about twenty), and no fold is shared between nodes.
+    or of the bytes if longer.  Each exp counts as one instruction
+    (``exps`` is their number; the math library takes about twenty), and
+    no fold is shared between nodes.
     """
-    from repro_torch.core.genz_malik import n_nodes
+    from repro_torch.perf.catalog import gm_eval_counts
 
-    nodes = n_nodes(d)
-    bytes_moved = (2 * d + 3 + d) * b * 8
-    per_point = {"f4": 3 * d + 2, "genz_gaussian": 4 * d + 2}[name]
-    ops = (nodes * per_point + 4 * d + 20) * b
-    instr = (12 * d + 9 * d * TERM_INSTR[name] + nodes * (d + FINISH_INSTR[name])
-             + (d - 1) + (6 * d + 1) + 22) * b
-    bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
-    ops_ms = ops / PEAK_FP64_FLOPS * 1e3
+    counts = gm_eval_counts(name, d, b)
+    bytes_ms = counts["bytes"] / PEAK_HBM_BYTES * 1e3
+    ops_ms = counts["flops"] / PEAK_FP64_FLOPS * 1e3
     return dict(
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        bytes=bytes_moved, ops=ops,
-        instr_bound_ms=max(bytes_ms, instr / (sms * FP64_LANES_PER_SM * clock_hz) * 1e3),
-        fp64_instr=instr, exps=nodes * b,
+        bytes=counts["bytes"], ops=counts["flops"],
+        instr_bound_ms=max(bytes_ms, counts["fp64_instr"] / (sms * FP64_LANES_PER_SM * clock_hz) * 1e3),
+        fp64_instr=counts["fp64_instr"], exps=counts["transcendentals"],
     )
 
 
@@ -1301,7 +1311,9 @@ def phase_gk_service(smi):
 
 def phase_cli(smi):
     """Phase 13c: the CLIs in process with --trace/--metrics/--strict; both
-    exit 0 and their files pass the telemetry checker."""
+    exit 0 and their files pass the telemetry checker.  Returns the GM
+    launches and a copy of serve_quad's metrics JSONL (phase 14's report
+    reads it)."""
     import shutil
 
     from repro_torch.kernels import genz_malik_eval as gm_kernel
@@ -1326,12 +1338,159 @@ def phase_cli(smi):
         assert check_main(["--trace", t["s.json"], "--metrics", t["s.jsonl"], "--devices", "4",
                            "--expect-flow-name", "service.evacuate"]) == 0
         sizes = {k: os.path.getsize(v) for k, v in t.items()}
+        os.makedirs(PERF_DIR, exist_ok=True)
+        metrics = shutil.copy(t["s.jsonl"], os.path.join(PERF_DIR, "serve_quad_metrics.jsonl"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = gm_kernel.launch_count()
     log(json.dumps(dict(phase="cli", card=smi, integrate_wall_s=wall_i, serve_quad_wall_s=wall_s,
                         file_bytes=sizes, gm_launches=launches)))
     assert launches > 0
+    return launches, metrics
+
+
+def _example(name):
+    """``main`` of ``examples/<name>.py``, loaded by path."""
+    import runpy
+
+    return runpy.run_path(os.path.join(HERE, "examples", name + ".py"))["main"]
+
+
+def phase_observatory(smi, main_rows, timings, metrics_path):
+    """Phase 14: the performance observatory (repro_torch.perf) and the
+    three examples on the card; see the docstring.  Returns the GM
+    launches of the examples' runs."""
+    import contextlib
+    import io
+
+    from repro_torch.core import adaptive, rules
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.distributed import integrate_distributed
+    from repro_torch.core.ranks import cuda_devices
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.perf import catalog, machine, report
+
+    t0 = time.perf_counter()
+    os.makedirs(PERF_DIR, exist_ok=True)
+    # (a) the machine file
+    m = machine.profile_machine(fast=True, device="cuda")
+    machine.save_machine(m, os.path.join(PERF_DIR, "machine.json"))
+    log(json.dumps(dict(phase="machine", card=smi, peak_flops=m["peak_flops"],
+                        matmul_f32_flops=m["probes"]["matmul_f32"]["flops_per_s"],
+                        mem_bw=m["mem_bw"], reduce_bw=m["reduce_bw"], ici_bw=m["ici_bw"],
+                        matmul_n=m["probes"]["matmul_f64"]["n"],
+                        stream_n=m["probes"]["saxpy"]["n"], meta=m["meta"])))
+    assert m["meta"]["platform"] == "gpu" and m["peak_flops"] > 0 and m["mem_bw"] > 0
+
+    # (b) the catalog at the card-scale configs
+    cat = catalog.build_catalog(m, fast=False, reps=3, device="cuda")
+    catalog.save_catalog(cat, os.path.join(PERF_DIR, "kernel_catalog.json"))
+    keys = ("kernel", "integrand", "d", "rung", "scan_trips", "flops", "bytes", "measured_s",
+            "predicted_s", "roofline_frac", "dominant", "launches")
+    for e in cat["entries"]:
+        log("catalog: " + json.dumps({k: e.get(k) for k in keys}))
+    for t in timings:  # phase 8's _bounds at B = TIMED_B
+        e = next(e for e in cat["entries"] if e["kernel"] == "gm_eval"
+                 and (e["integrand"], e["d"], e["rung"]) == (t["integrand"], t["d"], t["B"]))
+        want = GM_COUNTS[(t["integrand"], t["d"])]
+        assert (e["flops"], e["bytes"]) == want == (t["ops"], t["bytes"]), (e, t)
+    for e in cat["entries"]:
+        gm_launches = {"gm_eval": 1, "advance": 0, "vegas_iterate": 0,
+                       "service_dispatch": e["scan_trips"]}[e["kernel"]]
+        sums_launches = 1 if e["kernel"] == "vegas_iterate" else 0
+        assert e["launches"] == {"genz_malik_eval": gm_launches, "vegas_sums": sums_launches}, e
+    torch.cuda.empty_cache()
+
+    # (c) the report, from (a), (b) and phase 13c's metrics JSONL
+    md = report.render_markdown(m, cat, report.BENCH_DIR, metrics_path, "cuda")
+    with open(os.path.join(PERF_DIR, "PERF_REPORT.md"), "w") as f:
+        f.write(md)
+    for section in ("## Machine", "## Kernel cost catalog", "## Benchmark trajectory",
+                    "## Service latency & idle"):
+        assert section in md, section
+    assert "service.dispatch_wall_s" in md and "idle fraction" in md
+
+    # (d) a callable f4 through integrate: the torch route, no GM launch;
+    # beside it a warm run of the registry f4 (the kernel route)
+    f4 = main_rows[0]
+    name, d, rel_tol, capacity = MAIN_CASES[0]
+    cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
+    user_f4 = lambda x: torch.exp(-625.0 * sum((x[k] - 0.5) ** 2 for k in range(x.shape[0])))  # noqa: E731
+    _, registry_wall = _timed(lambda: adaptive.integrate(cfg, device="cuda"))
+    gm_kernel.reset_launch_count()
+    plain_calls = []
+    plain = rules.gm_eval_reference
+    rules.gm_eval_reference = lambda *a: plain_calls.append(1) or plain(*a)
+    try:
+        res, wall = _timed(lambda: adaptive.integrate(cfg, user_f4, device="cuda"))
+        whole_calls = len(plain_calls)
+        # the same run with the torch route's blocks cut to 2^16 regions
+        rules.BLOCK_ELEMS, block_elems = d << 16, rules.BLOCK_ELEMS
+        try:
+            blocked, blocked_wall = _timed(lambda: adaptive.integrate(cfg, user_f4, device="cuda"))
+        finally:
+            rules.BLOCK_ELEMS = block_elems
+    finally:
+        rules.gm_eval_reference = plain
+    blocked_calls = len(plain_calls) - whole_calls
+    row = dict(phase="callable_f4", card=smi, d=d, rel_tol=rel_tol, status=res.status,
+               iterations=res.iterations, n_evals=res.n_evals, integral=res.integral,
+               error=res.error, registry_integral=f4["integral"], registry_error=f4["error"],
+               bit_equal=(res.integral, res.error) == (f4["integral"], f4["error"]),
+               wall_s=wall, registry_warm_wall_s=registry_wall,
+               plain_calls=whole_calls, blocked_calls=blocked_calls,
+               blocked_wall_s=blocked_wall, gm_launches=gm_kernel.launch_count())
+    log(json.dumps(row))
+    assert row["gm_launches"] == 0, row
+    assert blocked_calls > whole_calls, row
+    assert (blocked.integral, blocked.error, blocked.status, blocked.iterations,
+            blocked.n_evals) == (res.integral, res.error, res.status, res.iterations,
+                                 res.n_evals), row
+    assert (res.status, res.iterations, res.n_evals) == (
+        f4["status"], f4["iterations"], f4["n_evals"]), row
+    assert abs(res.integral - f4["integral"]) <= 1e-12 * abs(f4["integral"]), row
+    # the other drivers take the callable too: integrate_device with
+    # integrate's bits, four ring ranks with phase 6's counts
+    loop, loop_wall = _timed(lambda: adaptive.integrate_device(cfg, user_f4, device="cuda"))
+    dist_cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=DIST_CAPACITY)
+    ranks, ranks_wall = _timed(lambda: integrate_distributed(
+        dist_cfg, user_f4, devices=cuda_devices(DIST_RANKS)))
+    row = dict(phase="callable_f4_drivers", card=smi, device_loop_wall_s=loop_wall,
+               device_loop=(loop.status, loop.iterations, loop.n_evals),
+               ranks_wall_s=ranks_wall, ranks=(ranks.status, ranks.iterations, ranks.n_evals,
+                                               ranks.evals_per_device.tolist()),
+               gm_launches=gm_kernel.launch_count())
+    log(json.dumps(row))
+    assert row["gm_launches"] == 0, row
+    assert (loop.integral, loop.error, loop.iterations, loop.n_evals) == (
+        res.integral, res.error, res.iterations, res.n_evals), row
+    got = (ranks.iterations, int(ranks.n_evals), [int(x) for x in ranks.evals_per_device])
+    assert ranks.status == "converged" and got == EXPECTED_DIST["f4-ring"], row
+
+    # (e) the three examples, in process
+    gm_kernel.reset_launch_count()
+    with contextlib.redirect_stdout(io.StringIO()):
+        quick = _example("torch_quickstart")("cuda")
+        dist = _example("torch_distributed_quadrature")("cuda")
+        batch = _example("torch_batch_service")("cuda")
+    launches = gm_kernel.launch_count()
+    row = dict(phase="examples", card=smi, gm_launches=launches,
+               quickstart={k: v["true_rel_err"] for k, v in quick.items()},
+               distributed={k: (v["true_rel_err"], v["mean_imbalance"]) for k, v in dist.items()},
+               batch_service=(batch["worst_true_rel_err"], batch["worst_vs_bar"]))
+    log(json.dumps(row))
+    for case in quick.values():
+        assert case["result"].status == "converged", row
+        assert case["true_rel_err"] <= 5 * case["rel_tol"], row
+    for case in dist.values():
+        assert case["result"].status == "converged", row
+        assert case["true_rel_err"] <= 10 * case["rel_tol"], row
+    assert dist["ring"]["mean_imbalance"] < dist["off"]["mean_imbalance"], row
+    assert all(r.status == "converged" for r in batch["batch"] + batch["served"]), row
+    assert batch["worst_vs_bar"] <= 10, row
+    assert launches > 0
+    os.remove(metrics_path)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1381,8 +1540,10 @@ def main():
     launches += gm_telemetry
     vegas_launches += mc_telemetry
     phase_gk_service(smi)
-    launches += phase_cli(smi)
+    cli_launches, metrics_path = phase_cli(smi)
+    launches += cli_launches
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    launches += phase_observatory(smi, main_rows, timings, metrics_path)
     vt, *others = phase_vegas_timing()
     t = timings[0]
     kernel = dict(

@@ -222,7 +222,7 @@ def _setup(cfg: QuadratureConfig, integrand, device: torch.device):
     hi = np.asarray(cfg.hi(), np.float64)
     total_volume = float(np.prod(hi - lo))
     dtype = getattr(torch, cfg.dtype)
-    rule = make_rule(cfg, integrand, device=device)
+    rule = make_rule(cfg, integrand)
     state = region_store.init_state(
         cfg.capacity, lo, hi, cfg.resolved_n_init(), dtype, device
     )
@@ -238,14 +238,15 @@ def integrate(
 ) -> AdaptiveResult:
     """Host-driven adaptive integration, one host sync per iteration.
 
-    ``integrand`` overrides ``cfg.integrand`` (a registry entry, or on the
-    CPU any torch callable ``f(x)``).  ``callback(it, integral, error,
-    n_active)`` is called once per evaluate step.
+    ``integrand`` overrides ``cfg.integrand`` (a registry entry, or any
+    torch callable ``f(x)``, which the GM rule evaluates on its torch route
+    on ``device``).  ``callback(it, integral, error, n_active)`` is called
+    once per evaluate step.
 
     ``recorder`` gets, per iteration, a ``core.eval`` span around the
     evaluate, the classify and the iteration's one read (so on the card it
-    ends after the device has done that work), a ``core.iter`` instant with
-    the read values, and a ``core.advance`` span around the split and
+    ends after the device has done that work), with the rule's ``route``
+    among its attributes, a ``core.iter`` instant with the read values, and a ``core.advance`` span around the split and
     compact, which ends with no read: on the card it measures the host's
     enqueue time, not device time.
     """
@@ -263,7 +264,7 @@ def integrate(
     it = 0
     syncs = 0
     for _ in range(cfg.max_iters):
-        with recorder.span("core.eval", window=int(n_active)):
+        with recorder.span("core.eval", window=int(n_active), route=rule.route):
             eval_w = region_store.select_window(ladder, n_active)
             state = make_eval_step(cfg, rule, window=eval_w)(state)
             w = region_store.select_window(adv_ladder, advance_target(n_active, C))

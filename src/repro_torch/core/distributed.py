@@ -151,7 +151,7 @@ def integrate_distributed(
     lo = np.asarray(cfg.lo(), np.float64)
     hi = np.asarray(cfg.hi(), np.float64)
     total_volume = float(np.prod(hi - lo))
-    rule = make_rule(cfg, integrand, device=ranks.first)
+    rule = make_rule(cfg, integrand)
     schedule = make_schedule(n)
     dt = getattr(torch, cfg.dtype)
     states, n_loc = _initial_states(cfg, ranks, dt)

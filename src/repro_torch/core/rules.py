@@ -1,11 +1,17 @@
 """Quadrature-rule layer: the Genz-Malik and Gauss-Kronrod rules, each with
 its error estimate and split-axis choice.
 
-On a CUDA device the GM rule evaluates through the hand-written GM kernel,
-which knows only the integrands of the registry (``kernel_id``); a Python
-callable raises there.  On the CPU any torch callable runs through the
-plain version.  The GK rule is torch operations on every device (the JAX
-package has no Pallas kernel for it), so it takes any torch callable.
+The GM rule has two routes, chosen by the integrand's type alone
+(``GenzMalikRule.route``).  An integrand of the registry or a family (it
+carries a ``kernel_id``) takes the ``"kernel"`` route, through
+``kernels/ops.py``: the hand-written CUDA GM kernel on the card, its plain
+version on the CPU.  A torch callable ``f((d, N)) -> (N,)`` takes the
+``"torch"`` route: :func:`repro_torch.core.genz_malik.gm_eval_reference`,
+torch operations on whatever device the regions are on, the counterpart of
+the JAX package's GM evaluation outside its Pallas kernel
+(``use_kernel=False``).  Nothing moves from one route to the other on a
+failure.  The GK rule is torch operations on every device (the JAX package
+has no Pallas kernel for it), so it takes any torch callable.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 from repro_torch.core import gauss_kronrod, genz_malik
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.error import two_level_error
-from repro_torch.core.genz_malik import row_prod
+from repro_torch.core.genz_malik import gm_eval_reference, row_prod
 from repro_torch.core.integrands import get as get_integrand, parse_spec
 from repro_torch.kernels import ops as kernel_ops
 
@@ -36,11 +42,28 @@ def _select_axis(diffs: torch.Tensor, halfw: torch.Tensor) -> torch.Tensor:
     return torch.where(flat, widest, best)
 
 
+# Elements of one integrand call's coordinates on the torch route.
+# gm_eval_reference evaluates a node group one node at a time (as the
+# JAX reference's fori_loop does), so a call holds a (d, block) array and
+# the integrand's few temporaries of that size: 268 MB each in float64.  A
+# group is never one array (the corners alone would be 2^d * d values a
+# region, 852 KB at d = 13).
+BLOCK_ELEMS = 1 << 25
+
+
+def region_block(d: int) -> int:
+    """Regions per block of the torch route, on every device (a batch of
+    fewer regions, as every CPU run of the tests is, is one call)."""
+    return max(1, BLOCK_ELEMS // d)
+
+
 class GenzMalikRule:
     """Degree-7 GM rule + two-level error + fourth-difference axis choice.
 
     ``integrand`` is a registry entry, a family (then ``theta`` holds its
-    coefficients), or a torch callable ``f(x)`` (CPU only).
+    coefficients), or a torch callable ``f(x)`` on any device.  ``route``
+    says which: ``"kernel"`` for an integrand with a ``kernel_id``,
+    ``"torch"`` for a callable.
     """
 
     def __init__(
@@ -57,6 +80,12 @@ class GenzMalikRule:
         self.noise_mult = noise_mult
         self.block_regions = block_regions
         self.n_evals_per_region = genz_malik.n_nodes(d)
+        self.route = "torch" if getattr(integrand, "kernel_id", None) is None else "kernel"
+        if self.route == "torch" and theta is not None:
+            raise ValueError(
+                "a theta needs a family of repro_torch.core.integrands.PARAM_REGISTRY; "
+                "a callable takes none (bind it into the callable)"
+            )
         self._theta_on = {}  # (device, dtype) -> theta as tensors there
 
     def _theta(self, like: torch.Tensor):
@@ -85,19 +114,38 @@ class GenzMalikRule:
         ``B // S`` regions its own theta column in place of the rule's theta:
         the batch service's one evaluation over every live slot.
         """
-        i7, i5, i3, diffs = kernel_ops.genz_malik_eval(
-            self.integrand,
-            centers,
-            halfw,
-            theta=None if theta_cols is not None else self._theta(centers),
-            block_regions=self.block_regions,
-            theta_cols=theta_cols,
-        )
+        if self.route == "torch":
+            if theta_cols is not None:
+                raise ValueError("a callable takes no theta_cols")
+            i7, i5, i3, diffs = self._eval_torch(centers, halfw)
+        else:
+            i7, i5, i3, diffs = kernel_ops.genz_malik_eval(
+                self.integrand,
+                centers,
+                halfw,
+                theta=None if theta_cols is not None else self._theta(centers),
+                block_regions=self.block_regions,
+                theta_cols=theta_cols,
+            )
         vol = row_prod((2.0 * halfw).movedim(-1, 0))
         maxdiff = torch.amax(diffs, dim=-1)
         err = two_level_error(i7, i5, i3, vol, maxdiff, self.noise_mult)
         axis = _select_axis(diffs, halfw)
         return i7, err, axis
+
+    def _eval_torch(self, centers: torch.Tensor, halfw: torch.Tensor):
+        """The torch route: (i7, i5, i3, diffs (B, d)), in blocks of
+        :func:`region_block` regions (the bits do not depend on the block)."""
+        f = getattr(self.integrand, "fn", self.integrand)
+        b = centers.shape[0]
+        step = region_block(self.d)
+        if step >= b:
+            return gm_eval_reference(f, centers, halfw)
+        parts = [
+            gm_eval_reference(f, centers[r0:r0 + step], halfw[r0:r0 + step])
+            for r0 in range(0, b, step)
+        ]
+        return tuple(torch.cat(p) for p in zip(*parts))
 
 
 class GaussKronrodRule:
@@ -107,6 +155,8 @@ class GaussKronrodRule:
     its ``theta_fields``: then every :meth:`eval_batch` call takes theta as
     ``theta_cols`` (the batch service's one theta per slot).
     """
+
+    route = "torch"  # torch operations on every device
 
     def __init__(
         self,
@@ -157,13 +207,8 @@ class GaussKronrodRule:
         return i_k, err, axis
 
 
-def make_rule(
-    cfg: QuadratureConfig,
-    integrand=None,
-    theta=None,
-    device: Optional[torch.device] = None,
-):
-    """Build the configured rule for ``device``.
+def make_rule(cfg: QuadratureConfig, integrand=None, theta=None):
+    """Build the configured rule.
 
     ``integrand`` overrides the config-named integrand: a registry entry, a
     family together with ``theta``, or a torch callable ``f(x)``.  A
@@ -171,7 +216,9 @@ def make_rule(
     into (family, theta), so that theta reaches the GM kernel as rows; the
     GK rule binds it into the family's torch function.  A family without a
     theta (the batch service) takes one theta per slot, as ``theta_cols``
-    of every ``eval_batch`` call, with either rule.
+    of every ``eval_batch`` call, with either rule.  The integrand's type
+    alone picks the GM rule's route (``GenzMalikRule.route``), on every
+    device.
     """
     if theta is not None and integrand is None:
         raise ValueError("theta requires an explicit family integrand")
@@ -195,14 +242,6 @@ def make_rule(
             # a family without a theta: one theta per slot at every call
             return GaussKronrodRule(cfg.d, fn, theta_fields=f.theta_fields)
         return GaussKronrodRule(cfg.d, fn)
-    if device is not None and torch.device(device).type == "cuda":
-        if getattr(f, "kernel_id", None) is None:
-            raise ValueError(
-                "a Python callable cannot run in the CUDA GM kernel, which "
-                "inlines only the integrands of "
-                "repro_torch.core.integrands.REGISTRY and PARAM_REGISTRY; "
-                "use one of those or device='cpu'"
-            )
     return GenzMalikRule(
         cfg.d,
         f,

@@ -48,7 +48,9 @@ points the package has had since its VEGAS backend came, so, like
 
 Each result is one JSON line, with the card's name and power limit.
 Needs a CUDA device; there is no CPU fallback.  ``chip_smoke.py`` shares the
-cases and helpers of this file.
+cases and helpers of this file.  The card's rates and name come from
+``repro_torch.perf.machine``; a checkout from before that module, put first
+on ``PYTHONPATH``, gets the same data-sheet rates from :data:`_H100_SXM`.
 """
 
 from __future__ import annotations
@@ -65,6 +67,23 @@ import time
 
 import numpy as np
 import torch
+
+# The rates of perf/machine.py's h100-sxm preset that this file reads, for a
+# parent-vs-change run against a checkout that has no repro_torch.perf (the
+# tests hold the two equal).
+_H100_SXM = {"fp64_vector_flops": 34e12, "mem_bw": 3.35e12}
+
+try:
+    from repro_torch.perf.machine import PRESETS, card
+except ImportError:
+    PRESETS = {"h100-sxm": _H100_SXM}
+
+    def card() -> str:
+        """The cards' names and power limits, as nvidia-smi reports them."""
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip()
 
 MAIN_CASES = [
     # (integrand, d, rel_tol, capacity)
@@ -134,10 +153,10 @@ SUMS_TIMED = [
     ("f6 d=9", 9, 1 << 20, 3, 1),
     ("pool d=10", 10, 1 << 18, 2, 16),
 ]
-# H100 SXM peaks (NVIDIA data sheet): FP64 outside the tensor cores (an FMA
-# counted as two operations), HBM3.
-PEAK_FP64_FLOPS = 34e12
-PEAK_HBM_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, perf/machine.py's preset): FP64 outside
+# the tensor cores (an FMA counted as two operations), HBM3.
+PEAK_FP64_FLOPS = PRESETS["h100-sxm"]["fp64_vector_flops"]
+PEAK_HBM_BYTES = PRESETS["h100-sxm"]["mem_bw"]
 _Y_EDGES = (0.0, -0.0, 1.0, -0.3, -1e-300, 1.5, 3.0, float("nan"), 1.0 - 2.0**-53, 0.02, 0.5)
 # Device events by kind, first match of a word in the event's name: the GM
 # kernel, then the advance's sorts, gathers, copies, reductions (the tree
@@ -151,14 +170,6 @@ KINDS = [
     ("reduce", ("reduce_kernel",)),
     ("elementwise", ("elementwise",)),
 ]
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
 
 
 def inputs(name, d, b, rng, device="cuda"):

@@ -132,8 +132,9 @@ def mc_layout(cfg: QuadratureConfig) -> tuple[int, int]:
     return n_strat, n_strat**cfg.d
 
 
-def init_state(cfg: QuadratureConfig, device="cpu", n: int = 1) -> VegasState:
-    """``n`` fresh problems on ``device``, each drawing from the stream
+def init_state(cfg: QuadratureConfig, device, n: int = 1) -> VegasState:
+    """``n`` fresh problems on ``device`` (no default: a state lies where
+    its caller says), each drawing from the stream
     ``stream_seed(cfg.mc_seed)`` (the service pool reseeds a slot's stream
     at admission)."""
     dtype = getattr(torch, cfg.dtype)

@@ -193,7 +193,7 @@ class BatchEngine:
             self._total_volume = float(np.prod(hi - lo))
             self._dtype = getattr(torch, cfg.dtype)
             self._n_init = cfg.resolved_n_init()
-            self._rule = make_rule(cfg, self.family, device=self.ranks.first)
+            self._rule = make_rule(cfg, self.family)
             self._ladder = eval_ladder(cfg)
             self._adv_ladder = advance_ladder(cfg)
             self.theta_template = {

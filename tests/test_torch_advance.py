@@ -212,7 +212,7 @@ def test_one_eval_and_advance_match(name, classifier):
     jc = JConfig(d=3, integrand=name, classifier=classifier, rel_tol=1e-7, capacity=1 << 11)
     states, ev, adv, total_volume, width = _jax_trajectory(jc, 6)
     tc = port_config(jc)
-    rule = make_rule(tc, device=CPU)
+    rule = make_rule(tc)
     jrule = jrules.make_rule(jc)
     advance = tad.make_advance_step(tc, total_volume, width)
     for i in (0, 2, 5):

@@ -235,7 +235,8 @@ def _imports(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_port_imports_neither_jax_nor_reference(path):

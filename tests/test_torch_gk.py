@@ -123,7 +123,7 @@ def test_gk_takes_a_user_callable_and_a_family():
     def user_fn(x):
         return torch.exp(-(x * x).sum(0))
 
-    rule = trules.make_rule(cfg, user_fn, device=torch.device("cuda"))
+    rule = trules.make_rule(cfg, user_fn)
     assert rule.f is user_fn  # torch ops: no kernel id needed on any device
     fam = trules.make_rule(TConfig(d=2, integrand="genz_gaussian:5,5:0.3,0.7", rule="gauss_kronrod"))
     x = torch.rand(2, 9, dtype=torch.float64)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import adaptive
 from repro_torch.core import integrands
+from repro_torch.core import rules
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.kernels import genz_malik_eval as gm_kernel
 from repro_torch.kernels import ops
@@ -129,6 +130,15 @@ def test_integrate_on_card_matches_cpu(cuda, name, d, rel_tol):
 
 
 def test_user_callable_refused_on_card(cuda):
+    """The GM kernel refuses a callable; a callable with a theta is refused
+    outright, a bare one runs on the rule's torch route with no GM launch."""
     cfg = QuadratureConfig(d=2, capacity=1 << 8)
-    with pytest.raises(ValueError, match="REGISTRY"):
-        adaptive.integrate(cfg, lambda x: x[0])
+    with pytest.raises(ValueError, match="a callable takes none"):
+        rules.make_rule(cfg, lambda x: x[0], theta={"a": np.ones(2)})
+    before = gm_kernel.launch_count()
+    on_card = adaptive.integrate(cfg, lambda x: x[0] * x[1])
+    assert gm_kernel.launch_count() == before
+    on_cpu = adaptive.integrate(cfg, lambda x: x[0] * x[1], device="cpu")
+    assert (on_card.status, on_card.iterations, on_card.n_evals) == (
+        on_cpu.status, on_cpu.iterations, on_cpu.n_evals)
+    assert abs(on_card.integral - 0.25) <= 1e-12

@@ -648,3 +648,11 @@ def test_serve_quad_cli_vegas():
     bad = _cli("repro_torch.launch.serve_quad", "--device", "cpu", "--backend", "vegas",
                "--devices", "2")
     assert bad.returncode != 0 and "single-device" in bad.stderr, bad.stderr[-500:]
+
+
+def test_init_state_needs_a_device():
+    """A state lies where its caller says: no quiet default to the CPU."""
+    cfg = QuadratureConfig(d=3, backend="vegas", mc_samples=512)
+    with pytest.raises(TypeError):
+        engine.init_state(cfg)
+    assert engine.init_state(cfg, "cpu", n=2).edges.device.type == "cpu"

@@ -148,7 +148,7 @@ def test_rule_eval_batch_matches(integrand):
     centers, halfw = _regions(np.random.default_rng(21), 256, d)
     halfw[:16] = 0.05  # equal widths: ties in the widest-axis fallback
     jrule = jrules.make_rule(JConfig(d=d, integrand=integrand))
-    trule = trules.make_rule(TConfig(d=d, integrand=integrand), device="cpu")
+    trule = trules.make_rule(TConfig(d=d, integrand=integrand))
     je, jerr, jax_axis = jrule.eval_batch(jnp.asarray(centers), jnp.asarray(halfw))
     te, terr, tax = trule.eval_batch(torch.as_tensor(centers), torch.as_tensor(halfw))
     np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=1e-12)
@@ -167,10 +167,11 @@ def test_make_rule_routes_and_refuses():
         return torch.exp(-(x * x).sum(0))
 
     cfg = TConfig(d=2)
-    with pytest.raises(ValueError, match="REGISTRY"):
-        trules.make_rule(cfg, user_fn, device=torch.device("cuda"))
-    # on the CPU a callable runs through the plain version
-    rule = trules.make_rule(cfg, user_fn, device=torch.device("cpu"))
+    # a callable takes the torch route on any device; with a theta it is refused
+    rule = trules.make_rule(cfg, user_fn)
+    assert rule.route == "torch"
+    with pytest.raises(ValueError, match="a callable takes none"):
+        trules.make_rule(cfg, user_fn, theta={"a": np.ones(2)})
     est, err, axis = rule.eval_batch(torch.full((4, 2), 0.5), torch.full((4, 2), 0.5))
     assert est.shape == (4,) and bool(torch.all(err >= 0))
     assert isinstance(trules.make_rule(TConfig(d=2, rule="gauss_kronrod")), trules.GaussKronrodRule)
