@@ -124,6 +124,27 @@ Phases, each of which passes or raises (a failure exits nonzero):
    three examples (examples/torch_*.py) in process, each within its bar,
    and ring's mean imbalance below off's.
 
+15. the LM substrate's serve path (repro_torch.models, repro_torch.serving;
+   torch operations, no kernel of the port): (a) deepseek-7b at its
+   published widths (6.9 B float32 weights from seed 0) with bfloat16
+   activations on cuda:0: 4 prompts of 512 tokens from default_rng(0),
+   greedy generate of 32 tokens twice (the same tokens), then a flat
+   prefill and 31 decode steps on generate's tokens timed with CUDA
+   events, every step's logits and the prefill's held to one model_forward
+   over the 543 tokens fed (max |dlogit| <= 5e-2 max |logit|, argmax equal
+   where the top-2 gap exceeds twice that), chunked prefill (chunk 128)
+   held to flat, the decode steps again in float32 held to a float32
+   forward at 1e-3 max |logit|, where two planted faults (every step one
+   position late; every step from the prefill's SSM state) must miss at
+   some step, and 8 decode steps under torch.profiler split by kind
+   (lm_perf.py); prefill s, decode ms per token, tokens/s, peak memory,
+   the weights' bytes and a decode step's byte bounds are logged; (b)
+   mamba2-370m the same; (c) every architecture's smoke config (hubert's
+   forward, internvl2 with its frontend embeddings) on the card against
+   the port on the CPU with the same float32 weights, within 1e-4; (d)
+   python -m repro_torch.launch.serve at deepseek-7b's full width (4
+   prompts of 64 tokens, 16 new), exit 0.  No GM or sums kernel launches.
+
 Last, the sums kernel timed at gm_perf.py's SUMS_TIMED shapes (phase 10's
 d=15 and f6 cases, phase 11a's pool): per call, its chunk and combine
 launches, the plain version, index_add_ alone and the byte bound.
@@ -1494,6 +1515,38 @@ def phase_observatory(smi, main_rows, timings, metrics_path):
     return launches
 
 
+def phase_lm(smi):
+    """Phase 15: the LM serve path at full width and the smoke configs on
+    the card (lm_perf.py), then the serve CLI at full width; no GM or sums
+    launch."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels import vegas_sums as vs
+    from repro_torch.launch import lm_perf
+
+    t0 = time.perf_counter()
+    gm_kernel.reset_launch_count()
+    vs.reset_launch_count()
+    for arch in lm_perf.SERVE_ARCHS:
+        row = lm_perf.serve_case(lm_perf.full_width(arch), device="cuda", **lm_perf.SERVE_SHAPE)
+        log(json.dumps(dict(phase="lm_serve", card=smi, **row)))
+        torch.cuda.empty_cache()
+    for arch in ARCH_IDS:
+        log(json.dumps(dict(phase="lm_smoke", card=smi, **lm_perf.smoke_vs_cpu(arch, "cuda"))))
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "deepseek-7b",
+           "--batch", "4", "--prompt-len", "64", "--new-tokens", "16"]
+    t_cli = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")),
+                          capture_output=True, text=True, timeout=600)
+    log(json.dumps(dict(phase="lm_cli", card=smi, returncode=proc.returncode,
+                        wall_s=time.perf_counter() - t_cli, stdout=proc.stdout.splitlines()[-3:],
+                        stderr=proc.stderr.splitlines()[-5:])))
+    assert proc.returncode == 0, proc.stderr
+    assert gm_kernel.launch_count() == 0 and vs.launch_count() == 0
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_vegas_timing():
     """The sums kernel at SUMS_TIMED's three shapes (8 shards, 64 bins,
     float64): its time and its two launches', its plain version's,
@@ -1544,6 +1597,7 @@ def main():
     launches += cli_launches
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     launches += phase_observatory(smi, main_rows, timings, metrics_path)
+    phase_lm(smi)
     vt, *others = phase_vegas_timing()
     t = timings[0]
     kernel = dict(

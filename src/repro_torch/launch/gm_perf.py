@@ -239,7 +239,7 @@ def vegas_case(name, d, samples, rel_tol):
     return cfg, exact
 
 
-def sums_hard_case(name, device="cpu"):
+def sums_hard_case(name, device):
     """``(w, y, cum, nb, shard0, ns)`` of :data:`SUMS_HARD_CASES` ``name`` on
     ``device``, from a seed; an unaligned case's w and y start one element
     into their storage (so the kernel takes its scalar loads)."""

@@ -139,7 +139,7 @@ def init_state(cfg: QuadratureConfig, device, n: int = 1) -> VegasState:
     at admission)."""
     dtype = getattr(torch, cfg.dtype)
     _, m = mc_layout(cfg)
-    edges = grid_lib.uniform_edges(cfg.d, cfg.mc_bins, dtype, device)
+    edges = grid_lib.uniform_edges(cfg.d, cfg.mc_bins, dtype, device=device)
     return VegasState(
         edges=edges.expand(n, *edges.shape).contiguous(),
         strat_w=torch.full((n, m), 1.0 / m, dtype=dtype, device=device),

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 
-def uniform_edges(d: int, n_bins: int, dtype=torch.float64, device="cpu") -> torch.Tensor:
+def uniform_edges(d: int, n_bins: int, dtype=torch.float64, *, device) -> torch.Tensor:
     """The identity grid: ``(d, n_bins + 1)`` edges ``b * (1 / n_bins)``,
     the last exactly 1 (the reference's ``linspace`` rounds so)."""
     e = torch.arange(n_bins + 1, dtype=dtype, device=device) * (1.0 / n_bins)

@@ -1,0 +1,240 @@
+"""Shared neural layers: the port of :mod:`repro.models.layers`.
+
+Parameters are float32 ``nn.Parameter`` tensors (``param_dtype``) held by
+small modules whose attribute names are the JAX package's dict keys, so a
+JAX parameter tree loads by name (:mod:`repro_torch.models.weights`).  Every
+matmul casts its weight to the activation dtype per call, as the reference
+does; norms, softmax, rotary angles and logits run in float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+# the named range around attention's streaming, for torch.profiler (lm_perf.py
+# splits a decode step's device time by it); a few microseconds of host time
+# when no profiler runs
+ATTENTION_RANGE = "lm.attention"
+
+
+def act_dtype(cfg) -> torch.dtype:
+    """The activation dtype named by ``cfg.dtype``."""
+    return DTYPES[cfg.dtype]
+
+
+def check_matmul_precision() -> None:
+    """Raise if float32 matmuls may run in TF32.
+
+    The head and the MoE router multiply in float32; TF32 there would move
+    the logits and the routing away from the reference.
+    """
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "float32 matmuls must not use TF32: set torch.backends.cuda.matmul.allow_tf32 "
+            "= False and torch.set_float32_matmul_precision('highest')"
+        )
+
+
+def param(*shape, device) -> nn.Parameter:
+    """An uninitialised float32 serving weight (no gradient)."""
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device), requires_grad=False)
+
+
+_SQRT2 = math.sqrt(2.0)
+_TRUNC_LO = math.erf(-2.0 / _SQRT2)  # the standard normal's CDF at -2 and 2, as erf
+_TRUNC_HI = math.erf(2.0 / _SQRT2)
+
+
+def truncated_normal_(t: torch.Tensor, scale: float, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` in place with ``scale / sqrt(fan_in)`` times a standard
+    normal truncated to [-2, 2] (inverse CDF, as ``jax.random.truncated_normal``)."""
+    shape = t.shape
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale / np.sqrt(fan_in)
+    with torch.no_grad():
+        t.uniform_(_TRUNC_LO, _TRUNC_HI, generator=generator)
+        t.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0).mul_(std)
+    return t
+
+
+# --- RMSNorm ------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, *, device):
+        super().__init__()
+        self.scale = param(dim, device=device)
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale
+    return out.to(dtype)
+
+
+# --- Rotary embeddings --------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) integer."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- Blockwise (online-softmax) attention ------------------------------------
+#
+# The reference's streaming over KV blocks, in float32, with its block sizes
+# (1024 for the forward and prefill, 2048 for extend and decode): the peak
+# footprint is O(S * block) instead of O(S^2).  Not a finished attention
+# kernel: q, k and v are cast to float32 before they attend, as the
+# reference does.
+
+
+def blockwise_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,  # (B, Sk, Hkv, hd)
+    *,
+    causal: bool,
+    q_offset: int = 0,  # absolute position of q[0] (decode)
+    kv_valid_len=None,  # mask KV positions >= this (ragged decode cache)
+    kv_block: int = 1024,
+    scale: float | None = None,
+) -> torch.Tensor:
+    with torch.profiler.record_function(ATTENTION_RANGE):
+        return _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale)
+
+
+def _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale):
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{h} query heads are not a multiple of {hkv} KV heads")
+    groups = h // hkv
+    scale = float(scale) if scale is not None else float(1.0 / np.sqrt(hd))
+
+    kv_block = min(kv_block, sk)
+    if sk % kv_block:
+        pad = kv_block - sk % kv_block
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_valid_len = sk if kv_valid_len is None else kv_valid_len
+        sk = sk + pad
+    n_blocks = sk // kv_block
+
+    # the flat head axis, KV repeated to the full head count per block (GQA)
+    qf = q.float() * scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, sq, h), -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, sq, h), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
+    for blk in range(n_blocks):
+        lo = blk * kv_block
+        kb = k[:, lo : lo + kv_block].float()
+        vb = v[:, lo : lo + kv_block].float()
+        if groups > 1:
+            kb = kb.repeat_interleave(groups, dim=2)  # (B, kv_block, H, hd)
+            vb = vb.repeat_interleave(groups, dim=2)
+        s = torch.einsum("bqhd,bkhd->bqhk", qf, kb)  # (B, Sq, H, kv_block)
+        kv_pos = lo + torch.arange(kv_block, device=q.device)
+        mask = None
+        if causal:
+            mask = q_pos[:, None] >= kv_pos[None, :]
+        if kv_valid_len is not None:
+            valid = (kv_pos < kv_valid_len)[None, :]
+            mask = valid if mask is None else mask & valid
+        if mask is not None:
+            mask = mask[None, :, None, :]
+            s = s.masked_fill(~mask, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new == -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        if mask is not None:
+            p = p.masked_fill(~mask, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.to(q.dtype)
+
+
+# --- SwiGLU MLP ---------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, *, device):
+        super().__init__()
+        self.w_gate = param(d_model, d_ff, device=device)
+        self.w_up = param(d_model, d_ff, device=device)
+        self.w_down = param(d_ff, d_model, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        for w in (self.w_gate, self.w_up, self.w_down):
+            truncated_normal_(w, 1.0, generator)
+
+
+def mlp_apply(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
+    dtype = x.dtype
+    gate = x @ mlp.w_gate.to(dtype)
+    up = x @ mlp.w_up.to(dtype)
+    return (F.silu(gate) * up) @ mlp.w_down.to(dtype)
+
+
+# --- Embedding / head ---------------------------------------------------------
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d_model: int, *, device):
+        super().__init__()
+        self.table = param(vocab, d_model, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        with torch.no_grad():
+            self.table.normal_(generator=generator).mul_(0.02)
+
+
+def embedding_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    # gather the rows, then cast: the reference's cast-then-gather bits
+    # without casting the whole table
+    rows = table.index_select(0, tokens.reshape(-1))
+    return rows.reshape(*tokens.shape, table.shape[1]).to(dtype)
+
+
+class Head(nn.Module):
+    def __init__(self, d_model: int, vocab: int, *, device):
+        super().__init__()
+        self.w = param(d_model, vocab, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        truncated_normal_(self.w, 1.0, generator)
+
+
+def head_apply(head: Head, x: torch.Tensor) -> torch.Tensor:
+    # logits in float32 for a stable softmax
+    return x.float() @ head.w

@@ -71,7 +71,7 @@ def _edges(d, nb, rng):
 def test_uniform_edges_equal():
     for d, nb in [(1, 2), (3, 16), (5, 64), (2, 50)]:
         np.testing.assert_array_equal(
-            grid.uniform_edges(d, nb).numpy(), np.asarray(jgrid.uniform_edges(d, nb))
+            grid.uniform_edges(d, nb, device="cpu").numpy(), np.asarray(jgrid.uniform_edges(d, nb))
         )
 
 
@@ -292,7 +292,7 @@ def test_sums_hard_cases_by_definition(case):
     in one bin and one cube, y at 0, -0, 1, below 0, above 1 and NaN, bin
     counts 2 and 300, NaN, +-inf and -0.0 in w, short last chunks and odd
     shards."""
-    w, y, cum, nb, shard0, ns = sums_hard_case(case)
+    w, y, cum, nb, shard0, ns = sums_hard_case(case, "cpu")
     assert w.dtype == torch.float64
     got = vsums.vegas_sums(w, y, cum, nb, shard0, ns)
     for a, want in zip(got, _sums_by_definition(w.numpy(), y.numpy(), cum.numpy(), nb, shard0, ns)):
