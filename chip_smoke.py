@@ -145,6 +145,30 @@ Phases, each of which passes or raises (a failure exits nonzero):
    python -m repro_torch.launch.serve at deepseek-7b's full width (4
    prompts of 64 tokens, 16 new), exit 0.  No GM or sums kernel launches.
 
+16. the LM substrate's training path (repro_torch.training, repro_torch.data;
+   torch operations, no kernel of the port; lm_perf.py train): (a)
+   deepseek-7b at its published widths (d 4096, 32 heads, d_ff 11008,
+   vocab 102400) with its depth cut to lm_perf.TRAIN_LAYERS layers, bf16
+   activations, the default TrainConfig (the bf16 weight cast) with remat
+   full, 2 sequences of 2048 tokens from batch_for_step (seed 0): 2
+   warm-up and 4 timed steps on that batch (CUDA events), every loss
+   finite and the last below the first, and the same steps run twice the
+   same bits (losses, grad norms, every final weight); step time,
+   tokens/s, peak memory and the model-FLOP share of 989 TFLOP/s are
+   logged; then one forward and backward at 2 x 1024 under remat none,
+   full and dots, the same loss and gradients bit for bit, each one's peak
+   and time logged; (b) mamba2-370m whole (48 layers) at 4 x 2048 the
+   same; (c) every smoke config's train step on the card against the CPU
+   in float32 gather (loss within 1e-5, every gradient leaf within 1e-4 of
+   its largest entry), the card's gradients twice the same bits, then 5
+   steps with a falling loss; (d) 4 steps against 2, a checkpoint, a
+   restore and 2 more, bit-equal; (e) python -m repro_torch.launch.train
+   on mamba2-370m at full width (20 steps of 4 x 512), and on deepseek-7b
+   smoke with microbatches 2, remat dots and bf16_ef twice into one
+   checkpoint directory (the second run resumes), each exit 0; (f)
+   examples/torch_serve_lm.py and torch_train_lm.py in process.  No GM or
+   sums kernel launches.
+
 Last, the sums kernel timed at gm_perf.py's SUMS_TIMED shapes (phase 10's
 d=15 and f6 cases, phase 11a's pool): per call, its chunk and combine
 launches, the plain version, index_add_ alone and the byte bound.
@@ -1547,6 +1571,56 @@ def phase_lm(smi):
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
 
+def phase_lm_train(smi):
+    """Phase 16: the LM training path at full width, the remat policies,
+    the smoke configs against the CPU, resume, the train CLI and the two LM
+    examples (lm_perf.py train); no GM or sums launch."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels import vegas_sums as vs
+    from repro_torch.launch import lm_perf
+
+    t0 = time.perf_counter()
+    gm_kernel.reset_launch_count()
+    vs.reset_launch_count()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="lm_train_", dir=os.path.join(HERE, "build"))
+    try:
+        for row in lm_perf.train_all(smi, os.path.join(work, "resume")):
+            log(json.dumps({"phase": row.pop("what"), **row}))
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.train"]
+        smoke = ["--arch", "deepseek-7b", "--smoke", "--microbatches", "2", "--remat", "dots",
+                 "--grad-compression", "bf16_ef", "--ckpt-dir", os.path.join(work, "cli"),
+                 "--ckpt-every", "4"]
+        runs = [["--arch", "mamba2-370m", "--steps", "20", "--batch", "4", "--seq", "512"],
+                smoke + ["--steps", "6"], smoke + ["--steps", "12"]]
+        for args in runs:
+            t_cli = time.perf_counter()
+            proc = subprocess.run(base + args, cwd=HERE, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            log(json.dumps(dict(phase="lm_train_cli", card=smi, args=args,
+                                returncode=proc.returncode, wall_s=time.perf_counter() - t_cli,
+                                stdout=proc.stdout.splitlines()[-4:],
+                                stderr=proc.stderr.splitlines()[-5:])))
+            assert proc.returncode == 0, proc.stderr
+        assert "resumed at step 6" in proc.stdout, proc.stdout
+        served = _example("torch_serve_lm")(device="cuda")
+        trained = _example("torch_train_lm")(device="cuda", ckpt_dir=os.path.join(work, "example"))
+        assert served["tokens"].shape == (4, 32)
+        assert trained["start"] == 0 and len(trained["losses"]) == 40
+        assert all(math.isfinite(x) for x in trained["losses"])
+        assert trained["losses"][-1] < trained["losses"][0], trained["losses"]
+        log(json.dumps(dict(phase="lm_examples", card=smi, serve_tokens_per_s=served["tokens_per_s"],
+                            train_losses=trained["losses"][::5] + trained["losses"][-1:])))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert gm_kernel.launch_count() == 0 and vs.launch_count() == 0
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_vegas_timing():
     """The sums kernel at SUMS_TIMED's three shapes (8 shards, 64 bins,
     float64): its time and its two launches', its plain version's,
@@ -1598,6 +1672,7 @@ def main():
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
     launches += phase_observatory(smi, main_rows, timings, metrics_path)
     phase_lm(smi)
+    phase_lm_train(smi)
     vt, *others = phase_vegas_timing()
     t = timings[0]
     kernel = dict(

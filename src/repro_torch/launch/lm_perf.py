@@ -20,6 +20,21 @@ weights' bytes and a decode step's byte bounds (:func:`decode_step_bytes`).
 ``smoke`` runs every architecture's smoke config on the card against the
 port on the CPU with the same float32 weights (:func:`smoke_vs_cpu`).
 
+``train`` checks and measures the training path (:func:`train_all`):
+deepseek-7b at its published widths with its depth cut to fit one card,
+and mamba2-370m whole, each trained on one repeated batch from
+``batch_for_step`` (seed 0) with the default ``TrainConfig`` (the bf16
+weight cast) and the remat of ``TRAIN_CASES``: every loss finite, the last
+below the first, each step timed with CUDA events, and the same steps run
+twice give the same bits (:func:`train_case`); the three remat policies
+at ``REMAT_SHAPE`` give the same loss and gradients bit for bit, with the
+bytes each keeps for the backward, its peak and its forward-backward time
+(:func:`remat_case`); every
+smoke config's train step on the card against the CPU in float32 gather,
+twice the same bits on the card, and five steps with a falling loss
+(:func:`train_vs_cpu`); and a resumed run bit-equal to an unbroken one
+(:func:`resume_check`).
+
 Each result is one JSON line with the card's name and power limit.  Needs
 a CUDA device; ``chip_smoke.py`` phase 15 calls these functions.
 """
@@ -30,6 +45,9 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +55,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.adaptive import resolve_device
+from repro_torch.data import DataConfig, batch_for_step, frame_batch_for_step
 from repro_torch.models.layers import ATTENTION_RANGE, act_dtype
 from repro_torch.models.model import (
     Model,
@@ -49,6 +68,16 @@ from repro_torch.models.model import (
 )
 from repro_torch.perf.machine import PRESETS, card
 from repro_torch.serving import generate
+from repro_torch.training import (
+    OPTIMIZER_RANGE,
+    OptimizerConfig,
+    TrainConfig,
+    batch_to,
+    init_opt_state,
+    lm_loss,
+    make_train_step,
+)
+from repro_torch.training.train import compute_copy
 
 SERVE_ARCHS = ("deepseek-7b", "mamba2-370m")
 SERVE_SHAPE = dict(batch=4, prompt_len=512, new_tokens=32, chunk=128)
@@ -62,9 +91,12 @@ F32_TOL = 1e-4
 # (decode_controls): the bar that a decode with a planted fault must miss
 DECODE_F32_BAR = 1e-3
 PEAK_HBM_BYTES = PRESETS["h100-sxm"]["mem_bw"]
+# NVIDIA's H100 SXM data sheet: dense bf16 tensor-core rate
+PEAK_BF16_FLOPS = 989e12
 # aten ops whose kernels are matrix products; casts are kernels under
 # aten::_to_copy; attention elementwise is any other kernel inside
-# ATTENTION_RANGE
+# ATTENTION_RANGE (a forward, or its recomputation under remat); optimizer
+# is every kernel of apply_updates (OPTIMIZER_RANGE)
 MATMUL_OPS = frozenset({"aten::mm", "aten::bmm", "aten::addmm", "aten::matmul", "aten::einsum"})
 
 
@@ -132,12 +164,19 @@ def check_logits(got, ref, cfg, what: str) -> float:
     return rel
 
 
+# the kinds that a profiled decode step's and train step's kernels are split into
+DECODE_KINDS = ("matmul", "cast", "attention_elementwise", "other")
+TRAIN_KINDS = ("matmul", "cast", "attention_elementwise", "optimizer", "other")
+
+
 def _kind(evt) -> str:
     """The kind of the kernels that ``evt`` launched, from its op chain."""
     names = []
     while evt is not None:
         names.append(evt.name)
         evt = evt.cpu_parent
+    if OPTIMIZER_RANGE in names:
+        return "optimizer"
     if MATMUL_OPS.intersection(names):
         return "matmul"
     if "aten::_to_copy" in names:
@@ -147,11 +186,40 @@ def _kind(evt) -> str:
     return "other"
 
 
+def _device_split(prof, wall: float, kinds: tuple) -> dict:
+    """A profile's device time: busy seconds (the union of the kernels',
+    copies' and fills' intervals), the idle share of the profiled wall (an
+    upper bound: the profiler adds host time), and the kernels' seconds by
+    each of ``kinds`` (from their op chains, :func:`_kind`)."""
+    # a named range (record_function) also shows as a device event that
+    # spans its kernels: counted neither as a kernel nor as busy time
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    ranges = {e.name() for e in device if e.is_user_annotation()}
+    by_kind = dict.fromkeys(kinds, 0.0)
+    for evt in prof.events():
+        kernels = [k for k in evt.kernels if k.name not in ranges]
+        if kernels:
+            by_kind[_kind(evt)] += sum(k.duration for k in kernels) / 1e6
+    spans = sorted((e.start_ns(), e.end_ns()) for e in device if not e.is_user_annotation())
+    busy, reach = 0, None
+    for lo, hi in spans:
+        if reach is None or lo > reach:
+            busy += hi - lo
+            reach = hi
+        elif hi > reach:
+            busy += hi - reach
+            reach = hi
+    busy /= 1e9
+    return dict(profiled_wall_s=wall, device_busy_s=busy,
+                idle_share=(1.0 - busy / wall) if busy else None, device_s_by_kind=by_kind,
+                kinds_sum_s=sum(by_kind.values()))
+
+
 def decode_profile(cfg, model, prompt, tokens, steps: int = PROFILE_STEPS) -> dict:
     """``steps`` decode steps (after a fresh prefill) on the card under
-    torch.profiler: the device seconds by kind (matmul, cast, attention
-    elementwise, other), their sum, and the idle share of the profiled wall
-    (an upper bound: the profiler adds host time)."""
+    torch.profiler, split by :func:`_device_split` (matmul, cast, attention
+    elementwise, other)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = model.device
@@ -165,13 +233,7 @@ def decode_profile(cfg, model, prompt, tokens, steps: int = PROFILE_STEPS) -> di
             _, caches = model_decode(cfg, model, tokens[:, i], caches, s + i)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    by_kind = dict.fromkeys(("matmul", "cast", "attention_elementwise", "other"), 0.0)
-    for evt in prof.events():
-        if evt.kernels:
-            by_kind[_kind(evt)] += sum(k.duration for k in evt.kernels) / 1e6
-    busy = sum(by_kind.values())
-    return dict(steps=steps, profiled_wall_s=wall, device_busy_s=busy,
-                idle_share=(1.0 - busy / wall) if busy else None, device_s_by_kind=by_kind)
+    return dict(steps=steps, **_device_split(prof, wall, DECODE_KINDS))
 
 
 def full_width(arch: str):
@@ -385,12 +447,335 @@ def smoke_vs_cpu(arch: str, device="cuda", *, batch: int = 2, prompt: int = 32,
                 embeds=embeds is not None, max_rel_err=out)
 
 
+# --- training ------------------------------------------------------------------
+
+# deepseek-7b keeps TRAIN_LAYERS of its 30 layers: a weight costs 16 bytes
+# in training (the float32 master, mu and nu, the bf16 copy and its bf16
+# gradient), the embedding and head 0.839 B weights, a layer 0.2024 B.  At
+# 8 layers the peak held 5.1 GB above those bytes (remat full, 2 x 2048):
+# 17 layers, 68.5 GB of state and ~73.9 GB at the peak, is the most whose
+# peak stays under 90 % of the card's 85.0 GB
+TRAIN_LAYERS = 17
+# (arch, batch, seq, remat) of the full-width training cases
+TRAIN_CASES = (("deepseek-7b", 2, 2048, "full"), ("mamba2-370m", 4, 2048, "full"))
+TRAIN_WARMUP, TRAIN_TIMED = 2, 4
+# lr of the full-width cases: from the first step (warmup 1), decaying
+# over a run of 100
+TRAIN_OPT = OptimizerConfig(lr=3e-4, warmup_steps=1, total_steps=100)
+# the remat comparison: deepseek-7b at the cut, where "none" fits too
+REMAT_SHAPE = dict(batch=2, seq=1024)
+# the smoke train checks: tests/test_arch_smoke.py's batch and optimizer
+SMOKE_TRAIN = dict(batch=2, seq=64)
+SMOKE_OPT = OptimizerConfig(lr=5e-3, warmup_steps=1, total_steps=50)
+# float32 gather, card against CPU: loss within rtol LOSS_RTOL, every
+# gradient leaf within GRAD_BAR * its largest entry on the CPU
+LOSS_RTOL = 1e-5
+GRAD_BAR = 1e-4
+
+
+def train_config(arch: str):
+    """``arch`` at its published widths with bfloat16 activations;
+    deepseek-7b cut to TRAIN_LAYERS layers."""
+    cfg = full_width(arch)
+    if arch == "deepseek-7b":
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    return cfg
+
+
+def smoke_batch(cfg, batch: int, seq: int, seed: int = 1) -> dict:
+    """A numpy training batch as tests/test_arch_smoke.py builds it: frames
+    for audio; for the VLM, frontend embeddings (default_rng(0)) before the
+    tokens, with the frontend positions masked out of the loss."""
+    dc = DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq, seed=seed)
+    if cfg.family == "audio":
+        return frame_batch_for_step(dc, 0, cfg.d_model)
+    if cfg.family != "vlm":
+        return batch_for_step(dc, 0)
+    nf = cfg.n_frontend_tokens
+    tok = batch_for_step(dataclasses.replace(dc, seq_len=seq - nf), 0)
+    embeds = np.random.default_rng(0).standard_normal((batch, nf, cfg.d_model)).astype(np.float32)
+    zeros = np.zeros((batch, nf), np.int32)
+    return {
+        "tokens": tok["tokens"],
+        "embeds": embeds,
+        "labels": np.concatenate([zeros, tok["labels"]], axis=1),
+        "loss_mask": np.concatenate(
+            [zeros.astype(np.float32), np.ones_like(tok["labels"], np.float32)], axis=1),
+    }
+
+
+def train_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 per matrix-product weight per
+    token (the embedding is a gather, the conv depthwise: neither counts),
+    attention's 12 * layers * heads * head_dim * seq per token (QK^T and PV
+    over every key, forward and backward), and the SSD's contractions,
+    three times their forward."""
+    tokens = batch * seq
+    weights = sum(p.numel() for n, p in Model(cfg, device="meta").named_parameters()
+                  if p.dim() >= 2 and n != "embed.table" and not n.endswith("conv_w"))
+    flops = 6.0 * weights * tokens
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) == "ssm":
+            q, n, hp = min(cfg.ssm_chunk, seq), cfg.ssm_state, cfg.ssm_heads * cfg.ssm_headdim
+            flops += 3.0 * tokens * (2 * q * (n + hp) + 4 * n * hp)
+        elif cfg.use_mla:
+            qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            flops += 6.0 * tokens * seq * cfg.n_heads * (qk + cfg.v_head_dim)
+        else:
+            flops += 12.0 * tokens * seq * cfg.n_heads * cfg.resolved_head_dim
+    return flops
+
+
+def _host_params(model) -> dict:
+    return {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+
+
+def _train_run(cfg, tcfg, batch, dev, warmup: int, timed: int, profiled: bool = False) -> dict:
+    """Fresh weights from seed 0, ``warmup + timed`` steps on ``batch``,
+    each step between two CUDA events; returns the per-step losses and
+    grad norms, the timed steps' ms, the peak memory and the final weights
+    on the host.  ``profiled``: then one more step under torch.profiler,
+    split by :func:`_device_split`."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = model_init(cfg, 0, device=dev)
+    opt = init_opt_state(tcfg.opt, dict(model.named_parameters()))
+    step = make_train_step(cfg, tcfg)
+    losses, norms, events = [], [], []
+    for _ in range(warmup + timed):
+        events.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+        events[-1][0].record()
+        model, opt, metrics = step(model, opt, batch)
+        events[-1][1].record()
+        losses.append(metrics["ce_loss"])
+        norms.append(metrics["grad_norm"])
+    torch.cuda.synchronize(dev)
+    out = dict(
+        losses=[float(x) for x in losses], grad_norms=[float(x) for x in norms],
+        step_ms=[a.elapsed_time(b) for a, b in events[warmup:]],
+        first_step_ms=events[0][0].elapsed_time(events[0][1]),
+        peak_bytes=torch.cuda.max_memory_allocated(dev),
+        params=sum(p.numel() for p in model.parameters()),
+        weights=_host_params(model),
+    )
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(model, opt, batch)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        out["profile"] = _device_split(prof, wall, TRAIN_KINDS)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_case(cfg, *, batch: int, seq: int, remat: str, device="cuda",
+               warmup: int = TRAIN_WARMUP, timed: int = TRAIN_TIMED) -> dict:
+    """Train ``cfg`` (random weights from seed 0, the default TrainConfig
+    with ``remat`` and TRAIN_OPT) on one batch of ``batch_for_step``
+    (seed 0) twice; raises unless every loss is finite, the last is below
+    the first and the two runs give the same losses, grad norms and final
+    weights bit for bit.  Returns the step time (median of the timed
+    steps), tokens/s, peak memory, the model-FLOP share of the bf16
+    peak, and the device split of one more step of the second run under
+    torch.profiler."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"train_case times on a CUDA device, not {dev}")
+    tcfg = TrainConfig(remat=remat, opt=TRAIN_OPT)
+    data = batch_to(batch_for_step(DataConfig(cfg.vocab_size, batch, seq, seed=0), 0), dev)
+    first = _train_run(cfg, tcfg, data, dev, warmup, timed)
+    second = _train_run(cfg, tcfg, data, dev, warmup, timed, profiled=True)
+    losses = first["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: the loss did not fall: {losses}")
+    same = (losses == second["losses"] and first["grad_norms"] == second["grad_norms"]
+            and all(torch.equal(w, second["weights"][n]) for n, w in first["weights"].items()))
+    if not same:
+        raise AssertionError(f"{cfg.name}: two runs of the same steps differ")
+    step_s = float(np.median(first["step_ms"])) / 1e3
+    flops = train_model_flops(cfg, batch, seq)
+    return dict(
+        arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype, batch=batch, seq=seq,
+        remat=remat, param_gather_dtype=tcfg.param_gather_dtype, params=first["params"],
+        losses=losses, grad_norms=first["grad_norms"], step_ms=first["step_ms"],
+        step_ms_second_run=second["step_ms"], first_step_ms=first["first_step_ms"],
+        step_s=step_s, tokens_per_s=batch * seq / step_s,
+        peak_bytes=first["peak_bytes"], peak_bytes_second_run=second["peak_bytes"],
+        model_flops=flops, model_flop_share=flops / step_s / PEAK_BF16_FLOPS,
+        runs_bit_equal=True, profile=second["profile"],
+    )
+
+
+def remat_case(cfg, *, batch: int, seq: int, device="cuda", reps: int = 3) -> dict:
+    """The loss and its gradients for ``cfg`` (seed 0 weights, the bf16
+    compute copy) on one batch under each remat policy: the loss and every
+    gradient must be bit-equal to "none"'s.  Returns, per policy, the bytes
+    the forward keeps for the backward (allocated after the loss, less
+    before it), the peak above the memory held before the call (the bf16
+    gradients included) and the forward-backward ms (CUDA events; the
+    median of ``reps`` calls after one warm-up)."""
+    dev = resolve_device(device)
+    model = model_init(cfg, 0, device=dev)
+    copy = compute_copy(cfg, dev, torch.bfloat16)
+    with torch.no_grad():
+        for c, p in zip(copy.parameters(), model.parameters()):
+            c.copy_(p)
+    del model
+    params = list(copy.parameters())
+    data = batch_to(batch_for_step(DataConfig(cfg.vocab_size, batch, seq, seed=0), 0), dev)
+    rows, ref = {}, None
+    for policy in ("none", "full", "dots"):
+        times, saved, peak = [], 0, 0
+        for _ in range(1 + reps):
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, _ = lm_loss(cfg, copy, data, policy)
+            saved = torch.cuda.memory_allocated(dev) - before
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            end.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated(dev) - before
+        rows[policy] = dict(saved_bytes=saved, peak_above_resident_bytes=peak,
+                            fwd_bwd_ms=float(np.median(times[1:])), fwd_bwd_ms_all=times)
+        if ref is None:
+            ref = (loss.detach(), grads)
+        elif not (torch.equal(loss, ref[0]) and all(
+                (g is None and r is None) or torch.equal(g, r) for g, r in zip(grads, ref[1]))):
+            raise AssertionError(f"{cfg.name}: remat {policy} changes the loss or a gradient")
+        del loss, grads
+        torch.cuda.empty_cache()
+    del copy, params, ref
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch, seq=seq,
+                policies=rows, bit_equal=True)
+
+
+def _max_leaf_gap(got: dict, ref: dict) -> float:
+    """The largest over leaves of max |got - ref| / max |ref| (a missing
+    gradient is zero)."""
+    worst = 0.0
+    for n, r in ref.items():
+        g = got[n]
+        r = torch.zeros(()) if r is None else r.float().cpu()
+        g = torch.zeros(()) if g is None else g.float().cpu()
+        scale = float(r.abs().max())
+        gap = float((g - r).abs().max())
+        worst = max(worst, gap / scale if scale else gap)
+    return worst
+
+
+def train_vs_cpu(arch: str, device="cuda", *, steps: int = 5) -> dict:
+    """The smoke config's train step with the same float32 weights and
+    batch on ``device`` and on the CPU, in float32 gather: the loss within
+    LOSS_RTOL and every gradient leaf within GRAD_BAR of its largest entry
+    on the CPU; the step's gradients twice on ``device``, bit-equal; then
+    ``steps`` steps on ``device`` on the same batch, every loss finite and
+    the last below the first (tests/test_arch_smoke.py's check)."""
+    cfg = get_smoke_config(arch)
+    dev = resolve_device(device)
+    tcfg = TrainConfig(param_gather_dtype="float32", opt=SMOKE_OPT)
+    batch = smoke_batch(cfg, **SMOKE_TRAIN)
+    cpu_model = model_init(cfg, 0, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    cpu_metrics, cpu_grads = make_train_step(cfg, tcfg).grads(cpu_model, batch_to(batch, "cpu"))
+    step = make_train_step(cfg, tcfg)
+    data = batch_to(batch, dev)
+    metrics, grads = step.grads(card_model, data)
+    again_metrics, again = step.grads(card_model, data)
+    loss, ref = float(metrics["total_loss"]), float(cpu_metrics["total_loss"])
+    if not abs(loss - ref) <= LOSS_RTOL * abs(ref):
+        raise AssertionError(f"{arch}: loss {loss} on the card against {ref} on the CPU")
+    gap = _max_leaf_gap(grads, cpu_grads)
+    if not gap <= GRAD_BAR:
+        raise AssertionError(f"{arch}: a gradient leaf is {gap} of its scale off the CPU's")
+    if not (torch.equal(again_metrics["total_loss"], metrics["total_loss"]) and all(
+            (g is None and again[n] is None) or torch.equal(g, again[n]) for n, g in grads.items())):
+        raise AssertionError(f"{arch}: the step's gradients differ run to run on the card")
+    opt = init_opt_state(tcfg.opt, dict(card_model.named_parameters()))
+    losses = []
+    for _ in range(steps):
+        card_model, opt, m = step(card_model, opt, data)
+        losses.append(float(m["ce_loss"]))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: losses {losses}")
+    return dict(arch=arch, family=cfg.family, loss_rel_err=abs(loss - ref) / abs(ref),
+                max_grad_gap=gap, runs_bit_equal=True, losses=losses)
+
+
+def resume_check(directory: str, device="cuda") -> dict:
+    """tests/test_checkpoint.py::test_train_resume_equivalence on the port:
+    deepseek-7b smoke (batch 2 of 32 tokens, data seed 7, lr 1e-3), four
+    steps against two, a checkpoint saved (in ``directory``, which must be
+    empty or absent) and restored into fresh weights and state, and two
+    more; every weight must be bit-equal."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import restore_training, save_training
+
+    cfg = get_smoke_config("deepseek-7b")
+    dev = resolve_device(device)
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    dc = DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=32, seed=7)
+    step = make_train_step(cfg, tcfg)
+
+    def fresh():
+        model = model_init(cfg, 0, device=dev)
+        return model, init_opt_state(tcfg.opt, dict(model.named_parameters()))
+
+    def run(model, opt, lo, hi):
+        for s in range(lo, hi):
+            model, opt, _ = step(model, opt, batch_to(batch_for_step(dc, s), dev))
+        return model, opt
+
+    p4, _ = run(*fresh(), 0, 4)
+    p2, o2 = run(*fresh(), 0, 2)
+    mgr = CheckpointManager(directory)
+    save_training(mgr, 2, p2, o2, blocking=True)
+    model, opt = fresh()
+    at = restore_training(mgr, model, opt)
+    resumed, opt = run(model, opt, at, 4)
+    equal = all(torch.equal(a, b) for a, b in zip(p4.parameters(), resumed.parameters()))
+    if not (at == 2 and int(opt["count"]) == 4 and equal):
+        raise AssertionError("a resumed run differs from the unbroken one")
+    return dict(restored_at=at, count=int(opt["count"]), bit_equal=equal)
+
+
+def train_all(smi: str, resume_dir: str, device="cuda") -> list:
+    """Every training check and measurement of the module docstring, one
+    JSON-ready row each (the full-width cases, the remat comparison, each
+    smoke config, the resume into ``resume_dir``, which must be empty or
+    absent)."""
+    rows = []
+    for arch, batch, seq, remat in TRAIN_CASES:
+        rows.append(dict(what="lm_train", card=smi, **train_case(
+            train_config(arch), batch=batch, seq=seq, remat=remat, device=device)))
+        if arch == "deepseek-7b":
+            rows.append(dict(what="lm_train_remat", card=smi, **remat_case(
+                train_config(arch), device=device, **REMAT_SHAPE)))
+    for arch in ARCH_IDS:
+        rows.append(dict(what="lm_train_smoke", card=smi, **train_vs_cpu(arch, device)))
+    rows.append(dict(what="lm_train_resume", card=smi, **resume_check(resume_dir, device)))
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("serve", "smoke"))
+    ap.add_argument("what", choices=("serve", "smoke", "train"))
     args = ap.parse_args(argv)
     smi = card()
-    if args.what == "serve":
+    if args.what == "train":
+        with tempfile.TemporaryDirectory() as tmp:
+            for row in train_all(smi, os.path.join(tmp, "resume")):
+                print(json.dumps(row), flush=True)
+    elif args.what == "serve":
         for arch in SERVE_ARCHS:
             row = serve_case(full_width(arch), **SERVE_SHAPE)
             print(json.dumps(dict(row, card=smi)), flush=True)

@@ -157,8 +157,11 @@ def _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale):
         kb = k[:, lo : lo + kv_block].float()
         vb = v[:, lo : lo + kv_block].float()
         if groups > 1:
-            kb = kb.repeat_interleave(groups, dim=2)  # (B, kv_block, H, hd)
-            vb = vb.repeat_interleave(groups, dim=2)
+            # each KV head repeated for its query heads, as repeat_interleave
+            # would; expand's backward is a sum, which is deterministic on the
+            # card (repeat_interleave's is an atomic index_add)
+            kb = kb[:, :, :, None].expand(-1, -1, -1, groups, -1).reshape(b, kv_block, h, hd)
+            vb = vb[:, :, :, None].expand(-1, -1, -1, groups, -1).reshape(b, kv_block, h, hd)
         s = torch.einsum("bqhd,bkhd->bqhk", qf, kb)  # (B, Sq, H, kv_block)
         kv_pos = lo + torch.arange(kv_block, device=q.device)
         mask = None
@@ -221,8 +224,10 @@ class Embedding(nn.Module):
 
 def embedding_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     # gather the rows, then cast: the reference's cast-then-gather bits
-    # without casting the whole table
-    rows = table.index_select(0, tokens.reshape(-1))
+    # without casting the whole table.  Indexing, not index_select: its
+    # backward on the card is a sorted accumulation, deterministic where
+    # index_select's atomic index_add is not
+    rows = table[tokens.reshape(-1)]
     return rows.reshape(*tokens.shape, table.shape[1]).to(dtype)
 
 
@@ -236,5 +241,6 @@ class Head(nn.Module):
 
 
 def head_apply(head: Head, x: torch.Tensor) -> torch.Tensor:
-    # logits in float32 for a stable softmax
-    return x.float() @ head.w
+    # logits in float32 for a stable softmax; the weight may be a bf16
+    # compute copy (training), which is cast up as the reference does
+    return x.float() @ head.w.float()

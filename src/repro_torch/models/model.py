@@ -10,6 +10,7 @@ as functions over a :class:`Model`.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -142,20 +143,62 @@ def _block_apply(cfg: ModelConfig, layer_idx: int, blk: Block, x, positions, aux
     return x, aux
 
 
+# aten ops whose outputs the "dots" policy keeps: the matrix products with
+# no batch dimension (``x @ w`` reaches aten.mm), as JAX's
+# dots_with_no_batch_dims_saveable; bmm (einsum's batched products, the MoE
+# experts) and everything elementwise are recomputed
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _period_apply(cfg: ModelConfig, model: Model, start: int, x, positions, aux):
+    for i in range(start, start + cfg.block_pattern_period):
+        x, aux = _block_apply(cfg, i, model.blocks[i], x, positions, aux)
+    return x, aux
+
+
+def _remat(policy: str, fn, *args):
+    """``fn(*args)``, its activations kept (none), recomputed in the backward
+    (full), or recomputed but for the saved matrix products (dots)."""
+    if policy == "none":
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+            create_selective_checkpoint_contexts(_dots_policy)))
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
 def model_forward(
     cfg: ModelConfig,
     model: Model,
     tokens: Optional[torch.Tensor] = None,  # (B, S_text) integer
     embeds: Optional[torch.Tensor] = None,  # (B, S_front, d) modality stub
+    remat: str = "none",  # none | full | dots
 ):
-    """Returns logits (B, S, vocab) float32 and aux metrics (MoE losses)."""
+    """Returns logits (B, S, vocab) float32 and aux metrics (MoE losses).
+
+    ``remat`` rematerialises each period of the layer pattern in the
+    backward, as the reference's scanned body: the ``first_k_dense``
+    prologue is never rematerialised.  It changes memory, not values.
+    """
     check_matmul_precision()
     x = _inputs(cfg, model, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = {}
-    for i, blk in enumerate(model.blocks):
-        x, aux = _block_apply(cfg, i, blk, x, positions, aux)
+    for i in range(cfg.first_k_dense):
+        x, aux = _block_apply(cfg, i, model.blocks[i], x, positions, aux)
+    for start in range(cfg.first_k_dense, cfg.n_layers, cfg.block_pattern_period):
+        x, aux = _remat(remat, partial(_period_apply, cfg, model, start), x, positions, aux)
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     return head_apply(model.head, x), aux
 

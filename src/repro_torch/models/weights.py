@@ -40,8 +40,10 @@ def load_module(module: nn.Module, params: dict) -> nn.Module:
     return module
 
 
-def from_jax_params(cfg: ModelConfig, params: dict, device) -> Model:
-    """A :class:`Model` on ``device`` holding the JAX package's weights."""
+def _per_layer(cfg: ModelConfig, params: dict) -> dict:
+    """A stacked tree (parameters, or an optimizer moment of them) as the
+    port's module tree: ``embed``, ``final_norm``, ``head`` and one
+    ``blocks[i]`` per layer."""
     blocks = dict(enumerate(params["prologue"]))
     period = cfg.block_pattern_period
     n_scan = (cfg.n_layers - cfg.first_k_dense) // period
@@ -50,4 +52,22 @@ def from_jax_params(cfg: ModelConfig, params: dict, device) -> Model:
             blocks[cfg.first_k_dense + p * period + j] = _row(params["layers"][f"b{j}"], p)
     tree = {name: params[name] for name in ("embed", "final_norm", "head")}
     tree["blocks"] = {str(i): blk for i, blk in blocks.items()}
-    return load_module(Model(cfg, device=torch.device(device)), tree)
+    return tree
+
+
+def from_jax_params(cfg: ModelConfig, params: dict, device) -> Model:
+    """A :class:`Model` on ``device`` holding the JAX package's weights."""
+    return load_module(Model(cfg, device=torch.device(device)), _per_layer(cfg, params))
+
+
+def from_jax_opt_state(cfg: ModelConfig, state: dict, device) -> dict:
+    """The JAX package's optimizer state (numpy leaves) as the port's:
+    ``mu``, ``nu`` (and ``ef``) split into the model's parameter names by
+    the same period rows as the weights, float32 on ``device``; ``count``
+    an int32 on the host."""
+    out = {"count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32)}
+    for key in ("mu", "nu", "ef"):
+        if key in state:
+            flat = _flatten(_per_layer(cfg, state[key]), "", {})
+            out[key] = {n: t.to(device=device, dtype=torch.float32) for n, t in flat.items()}
+    return out
