@@ -169,6 +169,23 @@ Phases, each of which passes or raises (a failure exits nonzero):
    examples/torch_serve_lm.py and torch_train_lm.py in process.  No GM or
    sums kernel launches.
 
+17. the dry run (repro_torch.launch.dryrun; torch operations on fake
+   tensors, no kernel of the port): (a) DRYRUN_CELLS at full width, each
+   its step traced as a DTensor program over a fake process group of 256
+   or 512 ranks with a cuda DeviceMesh ((16, 16) or (2, 16, 16)): the
+   train step, the chunked prefill, the encoder forward (hubert), decode
+   with deepseek-v2-236b's MLA rank-sharded cache and qwen3-moe's
+   sequence-sharded KV cache, the 500k decode; one JSON line per cell, each
+   "ok" with per-device bytes, FLOPs and collectives; (b) calibration: two
+   programs predicted by the dry run on a (1, 1) mesh, then run for real
+   on cuda:0 (max_memory_allocated after reset_peak_memory_stats, above
+   what was allocated before their arguments): deepseek-7b at its
+   published widths (bf16 weights) prefilling 4 x 512 tokens into a cache
+   of 544, and deepseek-7b cut to lm_perf.TRAIN_LAYERS layers taking one
+   train step of 2 x 2048 (remat full, the default TrainConfig); each
+   predicted peak within CALIBRATION_TOL of the measured one.  No GM or
+   sums kernel launches.
+
 Last, the sums kernel timed at gm_perf.py's SUMS_TIMED shapes (phase 10's
 d=15 and f6 cases, phase 11a's pool): per call, its chunk and combine
 launches, the plain version, index_add_ alone and the byte bound.
@@ -1621,6 +1638,112 @@ def phase_lm_train(smi):
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
 
+# phase 17's full-width cells (arch, shape, multi-pod): every step kind,
+# both meshes, a MoE architecture, the MLA decode override and the encoder
+DRYRUN_CELLS = (
+    ("deepseek-7b", "train_4k", False),
+    ("hubert-xlarge", "prefill_32k", False),
+    ("deepseek-v2-236b", "decode_32k", False),
+    ("qwen3-moe-235b-a22b", "decode_32k", True),
+    ("mamba2-370m", "long_500k", True),
+)
+# a predicted peak's largest relative distance from the card's
+CALIBRATION_TOL = 0.10
+
+
+def _calibration_programs():
+    """(name, config, shape, build_cell keywords, run) for phase 17b; ``run``
+    builds the same program's arguments on cuda:0 and runs it."""
+    import dataclasses
+
+    from repro_torch.launch import lm_perf
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models.model import cache_init, model_init, model_prefill
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train import TrainConfig, make_train_step
+
+    serve_cfg = lm_perf.full_width("deepseek-7b")
+    train_cfg = dataclasses.replace(serve_cfg, n_layers=lm_perf.TRAIN_LAYERS)
+    batch, prompt, cache_len = 4, 512, 544
+    rng = np.random.default_rng(0)
+
+    def prefill():
+        model = model_init(serve_cfg, 0, device="cuda")
+        with torch.no_grad():  # bf16 serving weights, as the dry run deploys them
+            for mod in model.modules():
+                for name, p in list(mod.named_parameters(recurse=False)):
+                    if p.dim() >= 2:
+                        setattr(mod, name, torch.nn.Parameter(p.to(torch.bfloat16), requires_grad=False))
+        tokens = torch.as_tensor(rng.integers(0, serve_cfg.vocab_size, (batch, prompt)), device="cuda")
+        caches = cache_init(serve_cfg, batch, cache_len, device="cuda")
+
+        @torch.no_grad()
+        def program():
+            return model_prefill(serve_cfg, model, tokens, caches)
+
+        return program
+
+    def train():
+        model = model_init(train_cfg, 0, device="cuda")
+        tcfg = TrainConfig(remat="full")
+        opt = init_opt_state(tcfg.opt, dict(model.named_parameters()))
+        data = {k: torch.as_tensor(rng.integers(0, train_cfg.vocab_size, (2, 2048)), device="cuda")
+                for k in ("tokens", "labels")}
+        step = make_train_step(train_cfg, tcfg)
+        return lambda: step(model, opt, data)
+
+    return (
+        ("deepseek-7b prefill 4x512 into 544", serve_cfg, ShapeSpec("calibration", prompt, batch, "prefill"),
+         dict(cache_len=cache_len), prefill),
+        (f"deepseek-7b[{lm_perf.TRAIN_LAYERS} layers] train 2x2048", train_cfg,
+         ShapeSpec("calibration", 2048, 2, "train"), dict(microbatches=1, remat="full"), train),
+    )
+
+
+def phase_dryrun(smi):
+    """Phase 17: (a) DRYRUN_CELLS on fake cuda meshes, (b) the memory
+    model's calibration on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels import vegas_sums as vs
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    gm_kernel.reset_launch_count()
+    vs.reset_launch_count()
+    for arch, shape, multi in DRYRUN_CELLS:
+        mb = dryrun.MICROBATCH_DEFAULTS.get(arch, 8)
+        rec = dryrun.run_cell(arch, shape, multi, device="cuda", microbatches=mb)
+        log(json.dumps(dict(phase="dryrun", card=smi, **rec)))
+        assert rec["status"] == "ok", rec
+        assert rec["flops"] > 0 and rec["collectives"]["count"] > 0, rec
+    t_cells = time.perf_counter() - t0
+    log(f"phase 17a: {t_cells:.1f} s")
+
+    for name, cfg, shape, kw, run in _calibration_programs():
+        mesh = dryrun.fake_mesh((1, 1), ("data", "model"), "cuda")
+        predicted = dryrun.trace_cell(cfg, shape, mesh, device="cuda", **kw)["peak_bytes"]
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        program = run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = program()
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - before
+        del program, out
+        torch.cuda.empty_cache()
+        ratio = predicted / measured
+        log(json.dumps(dict(phase="dryrun_calibration", card=smi, program=name,
+                            predicted_bytes=predicted, measured_bytes=measured, ratio=ratio)))
+        assert abs(ratio - 1) <= CALIBRATION_TOL, (name, predicted, measured)
+    dist.destroy_process_group()
+    assert gm_kernel.launch_count() == 0 and vs.launch_count() == 0
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s (cells {t_cells:.1f} s)")
+
+
 def phase_vegas_timing():
     """The sums kernel at SUMS_TIMED's three shapes (8 shards, 64 bins,
     float64): its time and its two launches', its plain version's,
@@ -1673,6 +1796,7 @@ def main():
     launches += phase_observatory(smi, main_rows, timings, metrics_path)
     phase_lm(smi)
     phase_lm_train(smi)
+    phase_dryrun(smi)
     vt, *others = phase_vegas_timing()
     t = timings[0]
     kernel = dict(

@@ -9,11 +9,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    distribute,
+    fsdp_gather,
+    merge_heads,
+    shard,
+    split_heads,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     RMSNorm,
     apply_rope,
     blockwise_attention,
+    cache_write,
     param,
     rmsnorm,
     truncated_normal_,
@@ -44,9 +52,12 @@ def _project_qkv(cfg: ModelConfig, attn: Attention, x, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dtype = x.dtype
-    q = (x @ attn.wq.to(dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ attn.wk.to(dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ attn.wv.to(dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_heads(x @ fsdp_gather(attn.wq.to(dtype)), cfg.n_heads, "heads")
+    k = split_heads(x @ fsdp_gather(attn.wk.to(dtype)), cfg.n_kv_heads, "kv_heads")
+    v = split_heads(x @ fsdp_gather(attn.wv.to(dtype)), cfg.n_kv_heads, "kv_heads")
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     if cfg.qk_norm:
         q = rmsnorm(attn.q_norm.scale, q, cfg.norm_eps)
         k = rmsnorm(attn.k_norm.scale, k, cfg.norm_eps)
@@ -57,10 +68,9 @@ def _project_qkv(cfg: ModelConfig, attn: Attention, x, positions):
 
 def attn_forward(cfg: ModelConfig, attn: Attention, x, positions, kv_block: int = 1024):
     """Training / encoding path (no cache)."""
-    b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, attn, x, positions)
     out = blockwise_attention(q, k, v, causal=cfg.causal, kv_block=kv_block)
-    return out.reshape(b, s, -1) @ attn.wo.to(x.dtype)
+    return merge_heads(out, "heads") @ fsdp_gather(attn.wo.to(x.dtype))
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype, *, device):
@@ -73,12 +83,11 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype, *, device
 
 def attn_prefill(cfg: ModelConfig, attn: Attention, x, positions, cache, kv_block=1024):
     """Full-sequence forward that also fills cache[:, :S]."""
-    b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, attn, x, positions)
     out = blockwise_attention(q, k, v, causal=cfg.causal, kv_block=kv_block)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    return out.reshape(b, s, -1) @ attn.wo.to(x.dtype), cache
+    cache["k"] = cache_write(cache["k"], k, 0)
+    cache["v"] = cache_write(cache["v"], v, 0)
+    return merge_heads(out, "heads") @ fsdp_gather(attn.wo.to(x.dtype)), cache
 
 
 def attn_extend(cfg: ModelConfig, attn: Attention, x, cache, pos: int, kv_block: int = 2048):
@@ -86,10 +95,10 @@ def attn_extend(cfg: ModelConfig, attn: Attention, x, cache, pos: int, kv_block:
     attend causally against everything cached so far.  S=1 is decode;
     S=chunk is chunked prefill."""
     b, s, _ = x.shape
-    positions = (pos + torch.arange(s, device=x.device)).expand(b, s)
+    positions = distribute((pos + torch.arange(s, device=x.device)).expand(b, s), "batch", "seq")
     q, k, v = _project_qkv(cfg, attn, x, positions)
-    cache["k"][:, pos : pos + s] = k
-    cache["v"][:, pos : pos + s] = v
+    cache["k"] = cache_write(cache["k"], k, pos)
+    cache["v"] = cache_write(cache["v"], v, pos)
     out = blockwise_attention(
         q,
         cache["k"],
@@ -99,7 +108,7 @@ def attn_extend(cfg: ModelConfig, attn: Attention, x, cache, pos: int, kv_block:
         kv_valid_len=pos + s,
         kv_block=kv_block,
     )
-    return out.reshape(b, s, -1) @ attn.wo.to(x.dtype), cache
+    return merge_heads(out, "heads") @ fsdp_gather(attn.wo.to(x.dtype)), cache
 
 
 def attn_decode(cfg: ModelConfig, attn: Attention, x, cache, pos: int, kv_block: int = 2048):

@@ -16,6 +16,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    current_ctx,
+    fsdp_gather,
+    layout_of,
+    local,
+    replicate_on,
+    sharded_axes,
+)
+
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
 # the named range around attention's streaming, for torch.profiler (lm_perf.py
@@ -94,7 +103,13 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) integer."""
+    """x: (B, S, H, hd); positions: (B, S) integer (over a mesh: on the
+    local shards, positions sharded over the batch as x is)."""
+    lay = layout_of(x)
+    return local(_rope, lay, (lay, layout_of(positions), None))(x, positions, theta)
+
+
+def _rope(x, positions, theta):
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)  # (hd/2,)
     angles = positions[..., None].float() * freqs  # (B, S, hd/2)
@@ -126,10 +141,89 @@ def blockwise_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     with torch.profiler.record_function(ATTENTION_RANGE):
+        ctx = current_ctx()
+        if ctx is None or layout_of(q) is None:
+            return _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale)
+        return _stream_sharded(ctx, q, k, v, causal, q_offset, kv_valid_len, kv_block, scale)
+
+
+def _stream_sharded(ctx, q, k, v, causal, q_offset, kv_valid_len, kv_block, scale):
+    """The stream on each rank's shards.  Batch shards stay where they are.
+
+    - KV sharded over its sequence (the long-context decode cache): every
+      rank streams its own keys for all the query heads, then the partial
+      softmax statistics are combined over that mesh axis.
+    - Query heads sharded, KV heads replicated (GQA heads that do not
+      divide the axis): each rank takes the KV heads of its own queries.
+    - Otherwise the heads shard alike (or not at all) and the stream is
+      local.
+    """
+    lq, lk, lv = layout_of(q), layout_of(k), layout_of(v)
+    seq_axes = sharded_axes(lk, ctx, 1)
+    if seq_axes:
+        if len(seq_axes) != 1:
+            raise ValueError(f"KV sequence sharded over {seq_axes}: one mesh axis is supported")
+        axis = seq_axes[0]
+        lq = replicate_on(lq, ctx, axis)
+        lo = ctx.coordinate(axis) * (k.shape[1] // ctx.sizes[axis])
+        group = ctx.mesh.get_group(axis)
+
+        def seq_fn(q, k, v):
+            m, l, acc = _stream_stats(
+                q, k, v, causal, q_offset, kv_valid_len, kv_block, scale, kv_offset=lo
+            )
+            return _combine(m, l, acc, group).to(q.dtype)
+
+        return local(seq_fn, lq, (lq, lk, lv))(q, k, v)
+
+    q_heads, k_heads = sharded_axes(lq, ctx, 2), sharded_axes(lk, ctx, 2)
+    kv_range = None
+    if k_heads and q_heads != k_heads:
+        lk, lv = replicate_on(lk, ctx, *k_heads), replicate_on(lv, ctx, *k_heads)
+        k_heads = []
+    if q_heads and not k_heads:
+        if len(q_heads) != 1:
+            raise ValueError(f"query heads sharded over {q_heads}: one mesh axis is supported")
+        h, hkv = q.shape[2], k.shape[2]
+        h_l, groups = h // ctx.sizes[q_heads[0]], h // hkv
+        if h_l % groups and groups % h_l:
+            raise ValueError(f"{h_l} local query heads do not align with {groups}-head groups")
+        off = ctx.coordinate(q_heads[0]) * h_l
+        kv_range = (off // groups, (off + h_l - 1) // groups + 1)
+
+    def fn(q, k, v):
+        if kv_range is not None:
+            k, v = k[:, :, kv_range[0] : kv_range[1]], v[:, :, kv_range[0] : kv_range[1]]
         return _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale)
+
+    # KV whole on the axis that splits the query heads: each rank's KV
+    # gradient is its own heads' share
+    kv_summed = q_heads if kv_range is not None else None
+    return local(fn, lq, (lq, lk, lv), summed=(None, kv_summed, kv_summed))(q, k, v)
+
+
+def _combine(m, l, acc, group):
+    """One softmax over every rank's keys from each rank's (max, sum,
+    weighted values) over its own."""
+    from torch.distributed import _functional_collectives as funcol
+
+    m_all = funcol.all_reduce(m, "max", group)
+    m_safe = torch.where(torch.isfinite(m_all), m_all, 0.0)
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l = funcol.all_reduce(l * alpha, "sum", group)
+    acc = funcol.all_reduce(acc * alpha[..., None], "sum", group)
+    return acc / torch.clamp_min(l[..., None], 1e-30)
 
 
 def _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale):
+    m, l, acc = _stream_stats(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale)
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.to(q.dtype)
+
+
+def _stream_stats(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale, kv_offset=0):
+    """The running (max, sum, weighted values) over the keys, which sit at
+    absolute positions ``kv_offset`` onwards."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if h % hkv:
@@ -142,7 +236,7 @@ def _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale):
         pad = kv_block - sk % kv_block
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        kv_valid_len = sk if kv_valid_len is None else kv_valid_len
+        kv_valid_len = kv_offset + sk if kv_valid_len is None else kv_valid_len
         sk = sk + pad
     n_blocks = sk // kv_block
 
@@ -163,7 +257,7 @@ def _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale):
             kb = kb[:, :, :, None].expand(-1, -1, -1, groups, -1).reshape(b, kv_block, h, hd)
             vb = vb[:, :, :, None].expand(-1, -1, -1, groups, -1).reshape(b, kv_block, h, hd)
         s = torch.einsum("bqhd,bkhd->bqhk", qf, kb)  # (B, Sq, H, kv_block)
-        kv_pos = lo + torch.arange(kv_block, device=q.device)
+        kv_pos = (kv_offset + lo) + torch.arange(kv_block, device=q.device)
         mask = None
         if causal:
             mask = q_pos[:, None] >= kv_pos[None, :]
@@ -183,8 +277,34 @@ def _stream(q, k, v, causal, q_offset, kv_valid_len, kv_block, scale):
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, vb)
         m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.to(q.dtype)
+    return m, l, acc
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor, start: int) -> torch.Tensor:
+    """``cache[:, start : start + S] = new`` in place; returns the cache.
+
+    Over a mesh each rank writes into its own shard: where the cache is
+    sharded over its sequence, the part of ``[start, start + S)`` it holds.
+    """
+    ctx = current_ctx()
+    lc = layout_of(cache)
+    if ctx is None or lc is None:
+        cache[:, start : start + new.shape[1]] = new
+        return cache
+    seq_axes = sharded_axes(lc, ctx, 1)
+    lo = 0
+    if seq_axes:
+        if len(seq_axes) != 1:
+            raise ValueError(f"cache sequence sharded over {seq_axes}: one mesh axis is supported")
+        lo = ctx.coordinate(seq_axes[0]) * (cache.shape[1] // ctx.sizes[seq_axes[0]])
+
+    def fn(c, n):
+        a, b = max(start, lo), min(start + n.shape[1], lo + c.shape[1])
+        if a < b:
+            c[:, a - lo : b - lo] = n[:, a - start : b - start]
+        return c
+
+    return local(fn, lc, (lc, replicate_on(lc, ctx, *seq_axes)))(cache, new)
 
 
 # --- SwiGLU MLP ---------------------------------------------------------------
@@ -204,9 +324,9 @@ class MLP(nn.Module):
 
 def mlp_apply(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
     dtype = x.dtype
-    gate = x @ mlp.w_gate.to(dtype)
-    up = x @ mlp.w_up.to(dtype)
-    return (F.silu(gate) * up) @ mlp.w_down.to(dtype)
+    gate = x @ fsdp_gather(mlp.w_gate.to(dtype))
+    up = x @ fsdp_gather(mlp.w_up.to(dtype))
+    return (F.silu(gate) * up) @ fsdp_gather(mlp.w_down.to(dtype))
 
 
 # --- Embedding / head ---------------------------------------------------------
@@ -227,8 +347,30 @@ def embedding_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.
     # without casting the whole table.  Indexing, not index_select: its
     # backward on the card is a sorted accumulation, deterministic where
     # index_select's atomic index_add is not
-    rows = table[tokens.reshape(-1)]
-    return rows.reshape(*tokens.shape, table.shape[1]).to(dtype)
+    ctx = current_ctx()
+    if ctx is None or layout_of(table) is None:
+        rows = table[tokens.reshape(-1)]
+        return rows.reshape(*tokens.shape, table.shape[1]).to(dtype)
+    # over a mesh, rows sharded over the vocab: each rank looks up the tokens
+    # its rows hold (zeros elsewhere), and the results are summed
+    from torch.distributed.tensor import Partial
+
+    lt = layout_of(table)
+    row_axes = sharded_axes(lt, ctx, 0)
+    v0, _ = ctx.shard_range(lt, 0, table.shape[0])
+    ltok = ctx.layout(tokens.shape, ("batch",) + ("seq",) * (tokens.dim() - 1))
+    lout = tuple(Partial() if a in row_axes else p for a, p in zip(ctx.sizes, ltok))
+
+    def lookup(table, tokens):
+        ids = tokens - v0
+        inside = (ids >= 0) & (ids < table.shape[0])
+        rows = table[torch.where(inside, ids, 0).reshape(-1)]
+        rows = torch.where(inside.reshape(-1, 1), rows, 0.0)
+        return rows.reshape(*tokens.shape, table.shape[1]).to(dtype)
+
+    # the table's gradient sums over the tokens, which the batch axes split
+    batch_axes = sharded_axes(ltok, ctx, 0)
+    return local(lookup, lout, (lt, ltok), summed=(batch_axes, None))(table, tokens)
 
 
 class Head(nn.Module):
@@ -243,4 +385,4 @@ class Head(nn.Module):
 def head_apply(head: Head, x: torch.Tensor) -> torch.Tensor:
     # logits in float32 for a stable softmax; the weight may be a bf16
     # compute copy (training), which is cast up as the reference does
-    return x.float() @ head.w.float()
+    return x.float() @ fsdp_gather(head.w).float()

@@ -14,6 +14,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    current_ctx,
+    fsdp_gather,
+    layout_of,
+    local,
+    shard,
+    sharded_axes,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RMSNorm, param, rmsnorm, truncated_normal_
 
@@ -62,20 +70,53 @@ def _causal_conv(mamba: Mamba2, xbc, conv_state=None):
     """Depthwise causal conv over the (B, L, conv_dim) channel block.
 
     conv_state: (B, K-1, conv_dim) holding the previous inputs (decode).
-    Returns (out, new_conv_state).
+    Returns (out, new_conv_state).  Over a mesh, on each rank's channels.
     """
-    k = mamba.conv_w.shape[0]
+    ctx = current_ctx()
+    if ctx is None or layout_of(xbc) is None:
+        return _conv(mamba.conv_w, mamba.conv_b, xbc, conv_state)
+    lx = ctx.layout(xbc.shape, ("batch", None, "ssm_inner"))
+    lw = ctx.layout(mamba.conv_w.shape, (None, "ssm_inner"))
+    lb = ctx.layout(mamba.conv_b.shape, ("ssm_inner",))
+    ls = None if conv_state is None else lx
+    batch_axes = sharded_axes(lx, ctx, 0)
+    return local(_conv, (lx, lx), (lw, lb, lx, ls), summed=(batch_axes, batch_axes, None, None))(
+        mamba.conv_w, mamba.conv_b, xbc, conv_state
+    )
+
+
+def _conv(conv_w, conv_b, xbc, conv_state):
+    k = conv_w.shape[0]
     if conv_state is None:
         pad = torch.zeros((xbc.shape[0], k - 1, xbc.shape[2]), dtype=xbc.dtype, device=xbc.device)
     else:
         pad = conv_state.to(xbc.dtype)
     full = torch.cat([pad, xbc], dim=1)  # (B, L + K - 1, cd)
-    w = mamba.conv_w.to(xbc.dtype)
+    w = conv_w.to(xbc.dtype)
     length = xbc.shape[1]
     out = sum(full[:, i : i + length, :] * w[i] for i in range(k))
-    out = F.silu(out + mamba.conv_b.to(xbc.dtype))
+    out = F.silu(out + conv_b.to(xbc.dtype))
     new_state = full[:, -(k - 1) :, :]
     return out, new_state
+
+
+def _ssd(cfg: ModelConfig, x, dt, b_mat, c_mat, a, initial_state=None):
+    """:func:`_ssd_chunked`; over a mesh, on each rank's heads (the scan is
+    independent per head; B and C are shared by every head)."""
+    ctx = current_ctx()
+    if ctx is None or layout_of(x) is None:
+        return _ssd_chunked(cfg, x, dt, b_mat, c_mat, a, initial_state)
+    lx = ctx.layout(x.shape, ("batch", "seq", "ssm_heads", None))
+    lh = ctx.layout(dt.shape, ("batch", "seq", "ssm_heads"))
+    lbc = ctx.layout(b_mat.shape, ("batch", "seq", None))
+    lst = ctx.layout((x.shape[0], x.shape[2], x.shape[3], b_mat.shape[2]),
+                     ("batch", "ssm_heads", None, None))
+    ls = None if initial_state is None else lst
+    heads = sharded_axes(lx, ctx, 2)  # B and C are shared by every head
+    return local(_ssd_chunked, (lx, lst), (None, lx, lh, lbc, lbc, lh, ls),
+                 summed=(None, None, None, heads, heads, None, None))(
+        cfg, x, dt, b_mat, c_mat, a, initial_state
+    )
 
 
 def _ssd_chunked(cfg: ModelConfig, x, dt, b_mat, c_mat, a, initial_state=None):
@@ -101,6 +142,7 @@ def _ssd_chunked(cfg: ModelConfig, x, dt, b_mat, c_mat, a, initial_state=None):
     nc = L // Q
 
     xe = (x * dt[..., None]).float().reshape(B, nc, Q, H, P)
+    xe = shard(xe, "batch", None, None, "ssm_heads", None)
     a = a.float().reshape(B, nc, Q, H)
     bm = b_mat.float().reshape(B, nc, Q, N)
     cm = c_mat.float().reshape(B, nc, Q, N)
@@ -111,6 +153,7 @@ def _ssd_chunked(cfg: ModelConfig, x, dt, b_mat, c_mat, a, initial_state=None):
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, None, :, :, None]
     # mask BEFORE exp: the upper triangle's exp overflows, and inf * 0 is NaN
     decay = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
+    decay = shard(decay, "batch", None, None, None, "ssm_heads")
     scores = torch.einsum("bcin,bcjn->bcij", cm, bm)  # (B,nc,Q,Q)
     # "bcij,bcijh,bcjhp->bcihp" in two steps
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * decay, xe)
@@ -170,19 +213,22 @@ def _mamba_seq(cfg: ModelConfig, mamba: Mamba2, x, conv_state, ssm_state):
     b, l, _ = x.shape
     di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     dtype = x.dtype
-    proj = x @ mamba.in_proj.to(dtype)
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    proj = x @ fsdp_gather(mamba.in_proj.to(dtype))
+    z, xbc, dt_raw = _split_proj(cfg, shard(proj, "batch", "seq", None))
     xbc, new_conv = _causal_conv(mamba, xbc, conv_state)
     xs, b_mat, c_mat = xbc.split([di, ns, ns], dim=-1)
 
     dt = _softplus(dt_raw.float() + mamba.dt_bias)  # (B,L,H)
+    dt = shard(dt, "batch", "seq", "ssm_heads")
     a = -torch.exp(mamba.a_log)[None, None, :] * dt  # (B,L,H)
     xh = xs.reshape(b, l, nh, hp)
-    y, final_state = _ssd_chunked(cfg, xh, dt, b_mat, c_mat, a, ssm_state)
+    xh = shard(xh, "batch", "seq", "ssm_heads", None)
+    y, final_state = _ssd(cfg, xh, dt, b_mat, c_mat, a, ssm_state)
+    y = shard(y, "batch", "seq", "ssm_heads", None)
     y = y.to(dtype) + mamba.d_skip.to(dtype)[None, None, :, None] * xh
     y = y.reshape(b, l, di)
     y = rmsnorm(mamba.gate_norm.scale, y * F.silu(z), cfg.norm_eps)
-    out = y @ mamba.out_proj.to(dtype)
+    out = y @ fsdp_gather(mamba.out_proj.to(dtype))
     return out, {"ssm": final_state, "conv": new_conv}
 
 
@@ -193,8 +239,8 @@ def mamba_decode(cfg: ModelConfig, mamba: Mamba2, x, cache):
         raise ValueError(f"mamba_decode takes one token, got {s}")
     di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     dtype = x.dtype
-    proj = x @ mamba.in_proj.to(dtype)
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    proj = x @ fsdp_gather(mamba.in_proj.to(dtype))
+    z, xbc, dt_raw = _split_proj(cfg, shard(proj, "batch", "seq", None))
     xbc, new_conv = _causal_conv(mamba, xbc, cache["conv"])
     xs, b_mat, c_mat = xbc.split([di, ns, ns], dim=-1)
 
@@ -210,5 +256,5 @@ def mamba_decode(cfg: ModelConfig, mamba: Mamba2, x, cache):
     y = y.to(dtype) + mamba.d_skip.to(dtype)[None, :, None] * xh.to(dtype)
     y = y.reshape(b, 1, di)
     y = rmsnorm(mamba.gate_norm.scale, y * F.silu(z), cfg.norm_eps)
-    out = y @ mamba.out_proj.to(dtype)
+    out = y @ fsdp_gather(mamba.out_proj.to(dtype))
     return out, {"ssm": state, "conv": new_conv}

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.adaptive import resolve_device
+from repro_torch.distributed.sharding import bound, distribute, fsdp_gather, shard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models import mla as mla_mod
@@ -115,17 +116,23 @@ def _inputs(cfg: ModelConfig, model: Model, tokens, embeds):
     if embeds is not None:
         parts.append(embeds.to(dtype))
     if tokens is not None:
-        parts.append(embedding_lookup(model.embed.table, tokens, dtype))
+        parts.append(embedding_lookup(fsdp_gather(model.embed.table), tokens, dtype))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _residual(x, h):
+    """x + h, with h first laid out as the residual stream (over a mesh: the
+    row-parallel products' partial sums reduced)."""
+    return x + shard(h, "batch", "seq", "embed")
 
 
 def _ffn(cfg: ModelConfig, layer_idx: int, blk: Block, x):
     """The block's second half: (x, MoE metrics or None)."""
     if cfg.layer_has_moe(layer_idx):
         h, metrics = moe_mod.moe_apply(cfg, blk.ffn, rmsnorm(blk.norm2.scale, x, cfg.norm_eps))
-        return x + h, metrics
+        return _residual(x, h), metrics
     if cfg.d_ff:
-        return x + mlp_apply(blk.ffn, rmsnorm(blk.norm2.scale, x, cfg.norm_eps)), None
+        return _residual(x, mlp_apply(blk.ffn, rmsnorm(blk.norm2.scale, x, cfg.norm_eps))), None
     return x, None
 
 
@@ -137,9 +144,10 @@ def _block_apply(cfg: ModelConfig, layer_idx: int, blk: Block, x, positions, aux
         h = mla_mod.mla_forward(cfg, blk.mixer, h, positions)
     else:
         h = attn_mod.attn_forward(cfg, blk.mixer, h, positions)
-    x, metrics = _ffn(cfg, layer_idx, blk, x + h)
+    x, metrics = _ffn(cfg, layer_idx, blk, _residual(x, h))
     if metrics is not None:
         aux = {k: aux.get(k, 0.0) + v for k, v in metrics.items()}
+    x = shard(x, "batch", "seq", "embed")
     return x, aux
 
 
@@ -169,6 +177,7 @@ def _remat(policy: str, fn, *args):
         return fn(*args)
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+    fn = bound(fn)  # over a mesh, recomputed under the same context
     if policy == "full":
         return checkpoint(fn, *args, use_reentrant=False)
     if policy == "dots":
@@ -191,16 +200,17 @@ def model_forward(
     prologue is never rematerialised.  It changes memory, not values.
     """
     check_matmul_precision()
-    x = _inputs(cfg, model, tokens, embeds)
+    x = shard(_inputs(cfg, model, tokens, embeds), "batch", "seq", "embed")
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = distribute(torch.arange(s, device=x.device).expand(b, s), "batch", "seq")
     aux = {}
     for i in range(cfg.first_k_dense):
         x, aux = _block_apply(cfg, i, model.blocks[i], x, positions, aux)
     for start in range(cfg.first_k_dense, cfg.n_layers, cfg.block_pattern_period):
         x, aux = _remat(remat, partial(_period_apply, cfg, model, start), x, positions, aux)
     x = rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    return head_apply(model.head, x), aux
+    logits = shard(head_apply(model.head, x), "batch", "seq", "vocab")
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +254,8 @@ def _block_serve(cfg, layer_idx, blk, x, positions, cache, pos, mode):
             h, cache = attn_mod.attn_prefill(cfg, blk.mixer, h, positions, cache)
         else:
             h, cache = attn_mod.attn_extend(cfg, blk.mixer, h, cache, pos)
-    x, _ = _ffn(cfg, layer_idx, blk, x + h)
+    x, _ = _ffn(cfg, layer_idx, blk, _residual(x, h))
+    x = shard(x, "batch", "seq", "embed")
     return x, cache
 
 
@@ -260,22 +271,24 @@ def _serve_pass(cfg: ModelConfig, model: Model, x, positions, caches, pos, mode)
 
 def model_prefill(cfg: ModelConfig, model: Model, tokens, caches, embeds=None):
     """Encode the prompt, fill caches; returns (last-position logits, caches)."""
-    x = _inputs(cfg, model, tokens, embeds)
+    x = shard(_inputs(cfg, model, tokens, embeds), "batch", "seq", "embed")
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = distribute(torch.arange(s, device=x.device).expand(b, s), "batch", "seq")
     return _serve_pass(cfg, model, x, positions, caches, pos=None, mode="prefill")
 
 
 def model_prefill_chunked(cfg: ModelConfig, model: Model, tokens, caches, chunk: int, embeds=None):
     """Chunked (Sarathi-style) prefill: the prompt in fixed chunks, each
     extending the caches, so the working set scales with the chunk."""
-    x = _inputs(cfg, model, tokens, embeds)
+    x = shard(_inputs(cfg, model, tokens, embeds), "batch", "seq", "embed")
     b, s, _ = x.shape
     if s % chunk:
         raise ValueError(f"prompt length {s} is not a multiple of the chunk {chunk}")
     logits = None
     for pos in range(0, s, chunk):
-        positions = (pos + torch.arange(chunk, device=x.device)).expand(b, chunk)
+        positions = distribute(
+            (pos + torch.arange(chunk, device=x.device)).expand(b, chunk), "batch", "seq"
+        )
         logits, caches = _serve_pass(
             cfg, model, x[:, pos : pos + chunk], positions, caches, pos=pos, mode="extend"
         )
@@ -284,6 +297,7 @@ def model_prefill_chunked(cfg: ModelConfig, model: Model, tokens, caches, chunk:
 
 def model_decode(cfg: ModelConfig, model: Model, token, caches, pos: int):
     """One decode step. token: (B,) integer; pos: the absolute position."""
-    x = embedding_lookup(model.embed.table, token[:, None], act_dtype(cfg))
-    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    x = embedding_lookup(fsdp_gather(model.embed.table), token[:, None], act_dtype(cfg))
+    x = shard(x, "batch", "seq", "embed")
+    positions = distribute(torch.full((x.shape[0], 1), pos, device=x.device), "batch", "seq")
     return _serve_pass(cfg, model, x, positions, caches, pos=pos, mode="decode")

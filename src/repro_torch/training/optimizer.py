@@ -9,9 +9,12 @@ weights or moments.  It is written out rather than taken from
 if its gradient were zero, so weight decay still reaches it, as the
 reference's zero cotangent does.
 
-- **ZeRO-1** (``zero1``) constrains the moments' layout over a mesh.  With
-  no mesh the reference's constraint is the identity, and so it is here:
-  the flag is accepted and changes nothing.
+- **ZeRO-1** (``zero1``): inside a mesh context
+  (:func:`repro_torch.distributed.sharding.mesh_rules`) each moment is
+  laid out over the data-parallel axes on its first dim that divides them
+  (the ``zero1`` rule), as the reference constrains it; the in-place update
+  then keeps that layout.  With no mesh the constraint is the identity, as
+  in the reference.
 - **bf16 gradient compression with error feedback** (``bf16_ef``):
   gradients are rounded to bf16 before the update and the rounding residual
   is carried to the next step.
@@ -32,6 +35,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import current_ctx, shard
 
 f32 = np.float32
 
@@ -78,10 +83,26 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return torch.tensor(f32(cfg.lr) * warm * cos, dtype=torch.float32)
 
 
+def _zero1_constrain(leaf):
+    """Shard the first divisible dim of an optimizer moment over DP axes."""
+    ctx = current_ctx()
+    if ctx is None or leaf.ndim == 0:
+        return leaf
+    size = ctx.axis_size(tuple(a for a in ctx.rules.get("zero1") or () if a in ctx.sizes))
+    if size <= 1:
+        return leaf
+    for i, dim in enumerate(leaf.shape):
+        if dim % size == 0 and dim >= size:
+            names = [None] * leaf.ndim
+            names[i] = "zero1"
+            return shard(leaf, *names)
+    return leaf
+
+
 def init_opt_state(cfg: OptimizerConfig, params: dict) -> dict:
     """``{"mu", "nu", ["ef"], "count"}``: zero moments (and residuals) per
-    parameter name, on each parameter's device; ``count`` 0 on the host.
-    ``zero1`` changes nothing (no mesh: the module docstring)."""
+    parameter name, laid out as each parameter (with ``zero1``, inside a
+    mesh context: over the data-parallel axes); ``count`` 0 on the host."""
     state = {
         "mu": {n: torch.zeros_like(p) for n, p in params.items()},
         "nu": {n: torch.zeros_like(p) for n, p in params.items()},
@@ -89,6 +110,9 @@ def init_opt_state(cfg: OptimizerConfig, params: dict) -> dict:
     }
     if cfg.grad_compression == "bf16_ef":
         state["ef"] = {n: torch.zeros_like(p) for n, p in params.items()}
+    if cfg.zero1:
+        for key in ("mu", "nu"):
+            state[key] = {n: _zero1_constrain(m) for n, m in state[key].items()}
     return state
 
 

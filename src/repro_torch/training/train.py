@@ -20,6 +20,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    BATCH_AXES,
+    current_ctx,
+    layout_of,
+    local,
+    replicate_on,
+    shard,
+    sharded_axes,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.model import Model, model_forward
@@ -62,9 +71,8 @@ def lm_loss(cfg: ModelConfig, model: Model, batch: dict, remat: str = "none"):
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        mask = torch.ones_like(labels, dtype=torch.float32)
+    nll = _nll(logits, labels)
     denom = torch.clamp_min(mask.sum(), 1.0)
     loss = (nll * mask).sum() / denom
     metrics = {"ce_loss": loss}
@@ -78,15 +86,53 @@ def lm_loss(cfg: ModelConfig, model: Model, batch: dict, remat: str = "none"):
     return total, metrics
 
 
-def compute_copy(cfg: ModelConfig, device, dtype: torch.dtype) -> Model:
+def _nll(logits, labels):
+    """Each position's negative log-likelihood of its label (float32)."""
+    ctx = current_ctx()
+    if ctx is None or layout_of(logits) is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, labels[..., None])[..., 0]
+    # vocab-parallel: the log-sum-exp reduces over the vocab shards, and each
+    # rank picks the labels that fall in its own slice of the vocab
+    from torch.distributed.tensor import Partial
+
+    lg = layout_of(logits)
+    v_axes = sharded_axes(lg, ctx, 2)
+    v0, _ = ctx.shard_range(lg, 2, logits.shape[2])
+    lp = tuple(Partial() if p.is_shard(2) else p for p in lg)  # summed over the vocab shards
+    ll = replicate_on(lg, ctx, *v_axes)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+
+    def sum_exp(logits, m):
+        return (logits - m).exp().sum(dim=-1)
+
+    def pick(logits, labels):
+        lab = labels - v0
+        inside = (lab >= 0) & (lab < logits.shape[-1])
+        got = torch.gather(logits, -1, torch.where(inside, lab, 0)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    lse = local(sum_exp, lp, (lg, ll))(logits, m).log() + shard(m[..., 0], "batch", "seq")
+    return shard(lse - local(pick, lp, (lg, ll))(logits, labels), "batch", "seq")
+
+
+def compute_copy(cfg: ModelConfig, device, dtype: torch.dtype, like: Model | None = None) -> Model:
     """An uninitialised :class:`Model` on ``device`` whose >= 2-D weights
     are ``dtype`` (the 1-D ones float32), every weight a leaf that requires
-    grad; built on the meta device first, so no float32 copy is allocated."""
+    grad; built on the meta device first, so no float32 copy is allocated.
+    Given the master ``like``, each weight is laid out as its master's (a
+    DTensor's shards over its mesh)."""
     copy = Model(cfg, device="meta")
-    for mod in copy.modules():
+    masters = dict(like.named_parameters()) if like is not None else {}
+    for mod_name, mod in copy.named_modules():
         for name, p in list(mod.named_parameters(recurse=False)):
             dt = dtype if p.dim() >= 2 else p.dtype
-            setattr(mod, name, nn.Parameter(torch.empty(p.shape, dtype=dt, device=device)))
+            master = masters.get(f"{mod_name}.{name}" if mod_name else name)
+            if master is not None and layout_of(master) is not None:
+                t = torch.empty_like(master, dtype=dt)
+            else:
+                t = torch.empty(p.shape, dtype=dt, device=device)
+            setattr(mod, name, nn.Parameter(t))
     return copy
 
 
@@ -99,11 +145,13 @@ class TrainStep:
         self.gather = DTYPES[tcfg.param_gather_dtype]
         self._copy = None  # the compute copy, built at the first step
 
-    def _differentiated(self, model: Model) -> Model:
+    def differentiated(self, model: Model) -> Model:
+        """The model the step differentiates: the master itself, or under
+        the bf16 cast its compute copy, refreshed from the master."""
         if self.gather == torch.float32:
             return model
         if self._copy is None or self._copy.device != model.device:
-            self._copy = compute_copy(self.cfg, model.device, self.gather)
+            self._copy = compute_copy(self.cfg, model.device, self.gather, like=model)
         with torch.no_grad():
             for c, p in zip(self._copy.parameters(), model.parameters()):
                 c.copy_(p)
@@ -114,15 +162,32 @@ class TrainStep:
         grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
         return {k: torch.as_tensor(v).detach() for k, v in metrics.items()}, grads
 
+    def accumulate(self, model: Model, acc: list, micro: dict) -> dict:
+        """Adds one microbatch's gradients into the float32 accumulator
+        ``acc`` (one per weight of ``model``); returns its metrics."""
+        metrics, chunk = self._grads_of(model, micro)
+        for a, g in zip(acc, chunk):
+            if g is not None:
+                a.add_(g)
+        return metrics
+
+    def named_grads(self, model: Model, grads: list) -> dict:
+        """``grads`` by weight name; under a mesh context each laid out as
+        its weight (a reduce-scatter where the backward left it partial), as
+        the reference constrains them."""
+        if current_ctx() is not None:
+            grads = [
+                g if g is None or layout_of(g) is None else g.redistribute(p.device_mesh, p.placements)
+                for g, p in zip(grads, model.parameters())
+            ]
+        return dict(zip((n for n, _ in model.named_parameters()), grads))
+
     def grads(self, model: Model, batch: dict) -> tuple[dict, dict]:
         """The loss's metrics and each weight's gradient by name (``None``
         for a weight the loss does not reach): bf16 for the >= 2-D weights
         under the bf16 cast with one microbatch, float32 otherwise."""
         m = self.tcfg.microbatches
-        lead = next(iter(batch.values())).shape[0]
-        if lead % m:
-            raise ValueError(f"batch {lead} does not split into {m} microbatches")
-        diff = self._differentiated(model)
+        diff = self.differentiated(model)
         flags = [p.requires_grad for p in diff.parameters()]
         for p in diff.parameters():
             p.requires_grad_(True)
@@ -132,17 +197,12 @@ class TrainStep:
             else:
                 grads = [torch.zeros_like(p, dtype=torch.float32) for p in model.parameters()]
                 for i in range(m):
-                    micro = {k: v.chunk(m)[i] for k, v in batch.items()}
-                    metrics, chunk = self._grads_of(diff, micro)
-                    for acc, g in zip(grads, chunk):
-                        if g is not None:
-                            acc.add_(g)
-                    del chunk
+                    metrics = self.accumulate(diff, grads, microbatch(batch, m, i))
                 grads = [g.div_(m) for g in grads]
         finally:
             for p, flag in zip(diff.parameters(), flags):
                 p.requires_grad_(flag)
-        return metrics, dict(zip((n for n, _ in model.named_parameters()), grads))
+        return metrics, self.named_grads(model, grads)
 
     def __call__(self, model: Model, opt_state: dict, batch: dict):
         metrics, grads = self.grads(model, batch)
@@ -151,6 +211,14 @@ class TrainStep:
         )
         metrics.update(opt_metrics)
         return model, opt_state, metrics
+
+
+def microbatch(batch: dict, m: int, i: int) -> dict:
+    """The ``i``-th of ``m`` runs of the batch's rows, laid out anew."""
+    lead = next(iter(batch.values())).shape[0]
+    if lead % m:
+        raise ValueError(f"batch {lead} does not split into {m} microbatches")
+    return {k: shard(v.chunk(m)[i], *BATCH_AXES[k]) for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> TrainStep:
