@@ -30,8 +30,11 @@ Phases, each of which passes or raises (a failure exits nonzero):
    ranks (rank r on cuda:(r mod device count): on one card they share
    it), capacity 2^22 per rank, float64; each case converges, agrees with
    phase 4's single-device run, spreads the work over every rank, and
-   takes the iterations and evaluations recorded for it, with one kernel
-   launch per rank per iteration;
+   takes the iterations and evaluations recorded for it, at sync_every 1
+   (one host read per iteration) and 4 (one per fused dispatch of four),
+   each twice in turns, with the same results at both; one kernel launch
+   per rank per iteration run (a dispatch runs on past convergence), and
+   one synchronising call per dispatch;
 7. the Gauss-Kronrod rule (torch operations) on the card, with the
    iterations and evaluations of the same run on the CPU;
 8. timings with CUDA events at the main path's window size: the kernel
@@ -234,6 +237,9 @@ DIST_CASES = [
 ]
 DIST_RANKS = 4
 DIST_CAPACITY = 1 << 22
+# iterations per host read of phase 6's runs: the per-iteration read, and
+# the default fused dispatch
+DIST_SYNC_EVERY = (1, 4)
 # (iterations, n_evals, evaluations per rank) of each distributed case,
 # exact: recorded from the first run on the card
 EXPECTED_DIST = {
@@ -611,8 +617,11 @@ def phase_device_loop(main_rows):
     return total
 
 
-def phase_distributed(main_rows):
-    """Four ranks through the CUDA GM kernel, against phase 4's runs."""
+def phase_distributed(main_rows, smi):
+    """Four ranks through the CUDA GM kernel, against phase 4's runs, at
+    ``sync_every`` 1 and 4 in turns (1, 4, 1, 4): every run gives
+    EXPECTED_DIST's counts and the same results at both; one synchronising
+    call per dispatch."""
     from repro_torch.core import integrands
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.core.distributed import integrate_distributed
@@ -624,40 +633,60 @@ def phase_distributed(main_rows):
     total = 0
     imbalance = {}
     for name, d, rel_tol, policy in DIST_CASES:
-        cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol,
-                               capacity=DIST_CAPACITY, redistribution=policy)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        gm_kernel.reset_launch_count()
-        res, wall = _timed(lambda: integrate_distributed(cfg, devices=devices))
-        launches = gm_kernel.launch_count()
         case = name.split(":")[0]
         exact = integrands.get(name).exact(d)
-        rel = abs(res.integral - exact) / abs(exact)
-        mean_share = res.n_evals / DIST_RANKS
-        row = dict(
-            case=case, d=d, rel_tol=rel_tol, redistribution=policy, ranks=DIST_RANKS,
-            devices=[str(x) for x in devices], capacity_per_rank=cfg.capacity,
-            status=res.status, wall_s=wall, iterations=res.iterations,
-            n_evals=res.n_evals, evals_per_s=res.n_evals / wall,
-            evals_per_rank=res.evals_per_device.tolist(),
-            share_of_mean=(res.evals_per_device / mean_share).tolist(),
-            mean_imbalance=res.mean_imbalance(), regions_moved=res.moved,
-            host_syncs=res.host_syncs, launches=launches,
-            max_memory_allocated=torch.cuda.max_memory_allocated(),
-            integral=res.integral, error=res.error, exact=exact, true_rel_err=rel,
-            single_integral=single[case]["integral"],
-        )
-        log(json.dumps(row))
-        assert res.status == "converged", row
-        assert rel <= 10 * rel_tol, row
-        assert abs(res.integral - single[case]["integral"]) <= 4 * rel_tol * abs(exact), row
-        assert min(res.evals_per_device) > 0.01 * mean_share, row
-        assert launches == res.iterations * DIST_RANKS > 0, row
-        got = (res.iterations, int(res.n_evals), [int(x) for x in res.evals_per_device])
-        assert got == EXPECTED_DIST[f"{case}-{policy}"], (got, row)
-        imbalance[(case, policy)] = res.mean_imbalance()
-        total += launches
+        walls = {k: [] for k in DIST_SYNC_EVERY}
+        results = {}
+        for k in DIST_SYNC_EVERY * 2:
+            cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=DIST_CAPACITY,
+                                   redistribution=policy, sync_every=k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gm_kernel.reset_launch_count()
+            res, wall, sync_calls = _sync_counted(
+                lambda: integrate_distributed(cfg, devices=devices))
+            launches = gm_kernel.launch_count()
+            rel = abs(res.integral - exact) / abs(exact)
+            mean_share = res.n_evals / DIST_RANKS
+            row = dict(
+                case=case, d=d, rel_tol=rel_tol, redistribution=policy, ranks=DIST_RANKS,
+                devices=[str(x) for x in devices], capacity_per_rank=cfg.capacity,
+                sync_every=k, status=res.status, wall_s=wall, iterations=res.iterations,
+                n_evals=res.n_evals, evals_per_s=res.n_evals / wall,
+                evals_per_rank=res.evals_per_device.tolist(),
+                share_of_mean=(res.evals_per_device / mean_share).tolist(),
+                mean_imbalance=res.mean_imbalance(), regions_moved=res.moved,
+                host_syncs=res.host_syncs, sync_calls=sync_calls, launches=launches,
+                discarded=res.discarded, eval_rows=res.eval_rows,
+                eval_rows_exact=res.eval_rows_exact,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                integral=res.integral, error=res.error, exact=exact, true_rel_err=rel,
+                single_integral=single[case]["integral"], card=smi,
+            )
+            log(json.dumps(row))
+            assert res.status == "converged", row
+            assert rel <= 10 * rel_tol, row
+            assert abs(res.integral - single[case]["integral"]) <= 4 * rel_tol * abs(exact), row
+            assert min(res.evals_per_device) > 0.01 * mean_share, row
+            # a dispatch runs on past convergence; those iterations are discarded
+            assert res.iterations * DIST_RANKS <= launches <= (
+                res.iterations + k - 1) * DIST_RANKS, row
+            assert launches == (res.iterations + res.discarded) * DIST_RANKS, row
+            assert res.eval_rows >= res.eval_rows_exact, row
+            if k == 1:
+                assert res.discarded == 0 and res.eval_rows == res.eval_rows_exact, row
+            assert res.host_syncs <= math.ceil(res.iterations / k) + 1, row
+            assert sync_calls == res.host_syncs, row
+            got = (res.iterations, int(res.n_evals), [int(x) for x in res.evals_per_device])
+            assert got == EXPECTED_DIST[f"{case}-{policy}"], (got, row)
+            key = (res.integral, res.error, res.iterations, res.n_evals,
+                   res.evals_per_device.tolist(), res.history, res.moved)
+            assert results.setdefault("key", key) == key, row
+            walls[k].append(wall)
+            imbalance[(case, policy)] = res.mean_imbalance()
+            total += launches
+        log(json.dumps(dict(phase="distributed_walls", case=case, redistribution=policy,
+                            walls_s={str(k): w for k, w in walls.items()}, card=smi)))
     assert imbalance[("f6", "ring")] <= imbalance[("f6", "off")] + 0.05, imbalance
     return total
 
@@ -1771,7 +1800,7 @@ def main():
     phase_kernel_vs_plain()
     launches, main_rows = phase_main_path()
     launches += phase_device_loop(main_rows)
-    launches += phase_distributed(main_rows)
+    launches += phase_distributed(main_rows, smi)
     phase_gauss_kronrod()
     timings = phase_timing()
     service_launches, phase9 = phase_service()

@@ -345,6 +345,47 @@ def _landed(event) -> bool:
     return event is None or event.query()
 
 
+class LandedCounts:
+    """Live counts copied to pinned host memory without a sync, and upper
+    bounds of the counts grown from the newest copy that has landed.
+
+    A driver that runs up to ``steps`` iterations per host read sizes its
+    windows from these bounds.  ``start(exact)`` opens a dispatch with the
+    exact counts the host knows; ``record(j, counts)`` queues the copy of
+    the ``width`` counts after iteration ``j`` (with an event behind it);
+    ``bounds(j, grow)`` takes the newest copy that has landed, by querying
+    the events in order, and applies ``grow`` (one iteration's worst case)
+    once for each iteration since; after the read that ends the dispatch,
+    ``exact(j)`` is iteration ``j``'s count.
+    """
+
+    def __init__(self, steps: int, width: int, device: torch.device):
+        self._buf = torch.empty((steps, width), dtype=torch.int64,
+                                pin_memory=device.type == "cuda")
+        self._host = self._buf.numpy()
+        self._device = device
+
+    def start(self, exact: list[int]) -> None:
+        self._known_j, self._known = 0, list(exact)  # newest exact counts: at iteration known_j
+        self._pending = []  # (iteration whose counts they are, event) of copies in flight
+
+    def record(self, j: int, counts: torch.Tensor) -> None:
+        self._buf[j].copy_(counts, non_blocking=True)
+        self._pending.append((j + 1, _record(self._device)))
+
+    def bounds(self, j: int, grow: Callable[[list[int]], list[int]]) -> list[int]:
+        while self._pending and _landed(self._pending[0][1]):
+            self._known_j = self._pending.pop(0)[0]
+            self._known = self._host[self._known_j - 1].tolist()
+        bounds = self._known
+        for _ in range(j - self._known_j):
+            bounds = grow(bounds)
+        return bounds
+
+    def exact(self, j: int) -> list[int]:
+        return self._host[j].tolist()
+
+
 def integrate_device(
     cfg: QuadratureConfig, integrand=None, device="cuda", recorder=NULL
 ) -> AdaptiveResult:
@@ -391,7 +432,7 @@ def integrate_device(
     C = cfg.capacity
 
     # the population after each advance of a block, copied without a sync
-    counts = torch.empty(cfg.sync_every, dtype=torch.int64, pin_memory=device.type == "cuda")
+    landed = LandedCounts(cfg.sync_every, 1, device)
     n = cfg.resolved_n_init()  # exact population at the start of a block
     it = 0
     syncs = 0
@@ -400,13 +441,9 @@ def integrate_device(
         while final is None:
             steps = min(cfg.sync_every, cfg.max_iters - it)
             snaps = []
-            known_j, known_n = 0, n  # newest exact population: at iteration known_j
-            pending = []  # (iteration whose population it is, event) of copies in flight
+            landed.start([n])
             for j in range(steps):
-                while pending and _landed(pending[0][1]):
-                    known_j = pending.pop(0)[0]
-                    known_n = int(counts[known_j - 1])
-                bound = min(known_n << (j - known_j), C)
+                (bound,) = landed.bounds(j, lambda b: [min(2 * b[0], C)])
                 state = make_eval_step(cfg, rule, window=region_store.select_window(ladder, bound))(state)
                 w = region_store.select_window(adv_ladder, advance_target(bound, C))
                 ww = None if w == C else w
@@ -416,8 +453,7 @@ def integrate_device(
                     state.overflowed)])
                 state = classify_split_compact(state, fin, window=ww)
                 state.it += 1  # in place, on the device
-                counts[j].copy_(state.active[:w].sum(), non_blocking=True)
-                pending.append((j + 1, _record(device)))
+                landed.record(j, state.active[:w].sum())
                 snaps.append(snap)
             if it + steps == cfg.max_iters:
                 # the loop ends after this advance: its estimates are the result
@@ -435,7 +471,7 @@ def integrate_device(
                 if it + steps == cfg.max_iters:
                     final = rows[-1]
                 else:
-                    n = int(counts[steps - 1])  # landed: the read above synced
+                    (n,) = landed.exact(steps - 1)  # landed: the read above synced
                     it += steps
 
     integral, error = final["integral"], final["error"]

@@ -102,9 +102,9 @@ class QuadratureConfig:
     init_regions_per_device: int = 8  # paper: 8 subdomains per rank at startup
     redistribution: str = "ring"  # any value != "off" enables the static
     #   ring-schedule round-robin policy ("xor" accepted as a legacy alias)
-    sync_every: int = 4  # iterations fused per dispatch in integrate_distributed;
-    #   convergence is checked on device each iteration, the host only syncs
-    #   (and reads back the per-iteration metrics) every sync_every steps
+    sync_every: int = 4  # iterations per dispatch in integrate_device and
+    #   integrate_distributed: the host reads the per-iteration snapshots once
+    #   per dispatch and keeps the iterations up to the first that converged
     # --- numerical guards (Gander-Gautschi style) -----------------------------
     min_width_frac: float = 1e-10  # halfwidth floor relative to domain width
     noise_mult: float = 50.0  # round-off noise floor multiplier

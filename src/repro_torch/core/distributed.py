@@ -5,22 +5,19 @@ single-device iteration locally; three collectives per iteration make up
 the paper's distributed extension:
 
   1. *metadata exchange*: ``psum`` of (integral, error, active count) right
-     after evaluation, the paper's compact per-iteration summary and its
-     only global synchronisation point;
+     after evaluation, the paper's compact per-iteration summary;
   2. *classification with global context*: the equal-share classifier uses
      the GLOBAL active count, so all ranks finalise against the same
      threshold;
   3. *redistribution*: :func:`repro_torch.core.redistribution.redistribute`,
-     cyclic donor/receiver pairing with capped coordinate-only payloads.
+     cyclic donor/receiver pairing with capped coordinate-only payloads,
+     its counts and sizes on the devices.
 
 One host process drives every rank (see :mod:`repro_torch.core.ranks` for
-why, and what it means on one card).  The host reads the metadata once per
-iteration, for all ranks together, in one stacked read: with it come the
-per-rank finalised counts, from which it knows every rank's population
-(``split.next_population``) and so every window and every transfer size
-without another sync.  ``cfg.sync_every`` therefore has no effect here (the
-JAX package fuses that many iterations per dispatch); the results do not
-depend on it.
+why, and what it means on one card).  As in the JAX package, ``cfg.sync_every``
+iterations run per dispatch, with no host read inside one: each iteration
+stacks a snapshot of its metadata on the first rank's device, and the host
+reads a dispatch's snapshots once (see :func:`integrate_distributed`).
 
 The initial domain decomposition over-partitions:
 ``init_regions_per_device`` (paper default 8) boxes per rank, assigned
@@ -38,6 +35,7 @@ import torch
 from repro_torch.core import region_store
 from repro_torch.core.adaptive import (
     AdaptiveResult,
+    LandedCounts,
     advance_ladder,
     advance_target,
     eval_ladder,
@@ -47,9 +45,9 @@ from repro_torch.core.classify import classify
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.ranks import Ranks, cuda_devices
 from repro_torch.core.redistribution import balance_stats, make_schedule, redistribute
-from repro_torch.core.region_store import RegionState
+from repro_torch.core.region_store import RegionState, to_device
 from repro_torch.core.rules import make_rule
-from repro_torch.core.split import classify_split_compact, next_population
+from repro_torch.core.split import classify_split_compact
 from repro_torch.telemetry.core import NULL
 
 
@@ -65,6 +63,13 @@ class DistributedResult(AdaptiveResult):
     )
     # regions moved by redistribution, summed over all rounds
     moved: int = 0
+    # iterations run past the stop inside the last dispatch, and discarded
+    discarded: int = 0
+    # rows the evaluate steps covered, summed over ranks and every iteration
+    # run (discarded ones too), and the rows they would have covered had
+    # every window been sized from the exact count (the K = 1 windows)
+    eval_rows: int = 0
+    eval_rows_exact: int = 0
 
     def mean_imbalance(self) -> float:
         if not self.history:
@@ -92,7 +97,7 @@ def _initial_states(
     """Per-rank initial states (box r on rank r mod n) and their counts.
 
     Each store is allocated on its rank's device; only the initial boxes
-    are copied from the host.
+    are copied from the host, through pinned memory (no host wait).
     """
     n_devices = ranks.n
     centers, halfw, n_init = _initial_global_partition(cfg, n_devices)
@@ -106,13 +111,110 @@ def _initial_states(
         mine = slice(r, n_init, n_devices)  # strided (paper: several regions/rank)
         k = len(centers[mine])
         st = region_store.empty_state(C, d, dtype, dev)
-        st.centers[:k] = torch.as_tensor(centers[mine], dtype=dtype, device=dev)
-        st.halfw[:k] = torch.as_tensor(halfw[mine], dtype=dtype, device=dev)
+        st.centers[:k] = to_device(centers[mine], dtype, dev)
+        st.halfw[:k] = to_device(halfw[mine], dtype, dev)
         st.active[:k] = True
         st.fresh[:k] = True
         states.append(st)
         counts.append(k)
     return states, counts
+
+
+def _round_limit(capacity: int) -> int:
+    """A redistribution round fills no rank past this many rows."""
+    return 3 * capacity // 4
+
+
+def grow_bounds(bounds: list[int], cfg: QuadratureConfig) -> list[int]:
+    """Upper bounds of the ranks' live counts one iteration on, from upper
+    bounds of them now: a split at most doubles a rank's count (capped at
+    the capacity), and a round's receive lifts it at most to the fair share
+    of the doubled total, by at most ``cfg.message_cap`` and not past
+    :func:`_round_limit`; a donor only loses rows."""
+    C = cfg.capacity
+    post = [min(2 * b, C) for b in bounds]
+    if cfg.redistribution == "off" or len(bounds) <= 1:
+        return post
+    fair = sum(post) // len(bounds)
+    return [max(p, min(p + cfg.message_cap, fair, _round_limit(C))) for p in post]
+
+
+# Per-rank fields of one iteration's snapshot: the live count before the
+# split, the fresh regions it evaluated, the regions it sent, its overflow
+# flag (after the advance) and its evaluation count.
+_PER_RANK = ("n_rows", "work", "sent", "overflowed", "n_evals")
+
+
+def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_volume, widths):
+    """One iteration on every rank, enqueued with no host read.
+
+    ``counts`` are the per-rank live counts (int64 on each rank's device)
+    and ``bounds`` host upper bounds of them, from which the windows are
+    sized.  Returns the states, the counts after the round and the
+    iteration's snapshot (float64, on the first rank's device): integral
+    and error, then :data:`_PER_RANK` rank by rank.
+    """
+    C = cfg.capacity
+    ladder, adv_ladder = eval_ladder(cfg), advance_ladder(cfg)
+
+    # --- evaluate (window from the rank's bound) ---------------------------
+    works, ests, errs = [], [], []
+    for r, st in enumerate(states):
+        w = region_store.select_window(ladder, bounds[r])
+        works.append(torch.sum(st.active[:w] & st.fresh[:w]))
+        st = states[r] = make_eval_step(cfg, rule, window=w)(st)
+        i_loc, e_loc = st.global_estimates(
+            window=region_store.select_window(adv_ladder, bounds[r])
+        )
+        ests.append(i_loc)
+        errs.append(e_loc)
+
+    # --- metadata exchange --------------------------------------------------
+    integral_t = ranks.psum(ests)
+    error_t = ranks.psum(errs)
+    n_global_t = ranks.psum(counts)
+
+    # --- classify (global equal-share threshold) and split ------------------
+    post = []
+    for r, st in enumerate(states):
+        w = region_store.select_window(adv_ladder, advance_target(bounds[r], C))
+        ww = None if w == C else w
+        sl = slice(0, w)
+        fin = classify(
+            cfg,
+            st.est[sl],
+            st.err[sl],
+            st.halfw[sl],
+            st.active[sl],
+            integral_t.to(st.est.device, non_blocking=True),
+            total_volume,
+            widths[r],
+            n_active=n_global_t.to(st.est.device, non_blocking=True),
+        )
+        st = states[r] = classify_split_compact(st, fin, window=ww)
+        post.append(torch.sum(st.active[:w]))
+
+    # --- the decentralised redistribution ------------------------------------
+    if cfg.redistribution != "off":
+        states, after, sent = redistribute(
+            states, ranks, schedule=schedule, cap=cfg.message_cap,
+            limit=_round_limit(C), it=it, n_rows=post,
+        )
+    else:
+        after, sent = post, [torch.zeros_like(p) for p in post]
+    for st in states:
+        st.it += 1  # in place, on the device
+
+    ints = ranks.gather([
+        torch.stack([n, w, k, st.overflowed.long()])
+        for n, w, k, st in zip(counts, works, sent, states)
+    ])
+    evals = ranks.gather([st.n_evals.double() for st in states])
+    snap = torch.cat([
+        torch.stack([integral_t.double(), error_t.double()]),
+        torch.cat([ints.double(), evals[:, None]], 1).flatten(),
+    ])
+    return states, after, snap
 
 
 def integrate_distributed(
@@ -136,11 +238,38 @@ def integrate_distributed(
     :func:`repro_torch.core.adaptive.integrate`, ``iterations`` counts the
     iteration that converged too.
 
-    ``recorder`` (:mod:`repro_torch.telemetry`) gets the JAX package's
-    events: a ``dist.dispatch`` span per iteration (the JAX driver's fused
-    launch; here one iteration, ``executed`` = 1), and per iteration a
-    ``dist.work_imb`` gauge, the very float of the ``history`` row, and a
-    ``dist.iter`` instant, all from the values of the iteration's one read.
+    The iterations run in dispatches of K = ``cfg.sync_every``, with no
+    host read inside one (the JAX package's ``make_dist_step``):
+
+    - each rank's windows are sized from an upper bound of its population:
+      the newest exact count whose copy to pinned host memory has landed
+      (:class:`repro_torch.core.adaptive.LandedCounts`, as
+      :func:`repro_torch.core.adaptive.integrate_device` does), grown for
+      each iteration since: ×2 for the split, capped at the capacity, then
+      for a receive up to the fair share of the grown total, by at most
+      ``cfg.message_cap``.  Any window that covers the population gives
+      the same bits (``region_store.tree_sum``), so the results do not
+      depend on K, nor on whether a copy landed in time.  The windows'
+      rows past the exact counts' windows are in ``eval_rows`` against
+      ``eval_rows_exact``;
+    - the redistribution round keeps its counts on the devices;
+    - each iteration stacks a snapshot on the first rank's device: the
+      summed integral and error, and per rank the live count before the
+      split, the fresh regions evaluated, the regions sent, ``overflowed``
+      and ``n_evals`` after the advance;
+    - the host reads the dispatch's snapshots once, sums the per-rank
+      integers, and takes the first iteration that converged (or found no
+      active region), as the reference's on-device ``stop`` does.  The
+      iterations after it in the same dispatch ran in full and are
+      discarded (``discarded``): the result comes from the snapshot, not
+      from the states.
+
+    ``host_syncs`` is the number of dispatches.  ``recorder``
+    (:mod:`repro_torch.telemetry`) gets the JAX package's events: a
+    ``dist.dispatch`` span per dispatch (``executed`` = the iterations the
+    host kept), and per kept iteration a ``dist.work_imb`` gauge, the very
+    float of the ``history`` row, and a ``dist.iter`` instant, all from the
+    values of the dispatch's one read.
     """
     cfg = cfg.validate()
     if devices is None:
@@ -154,112 +283,72 @@ def integrate_distributed(
     rule = make_rule(cfg, integrand)
     schedule = make_schedule(n)
     dt = getattr(torch, cfg.dtype)
-    states, n_loc = _initial_states(cfg, ranks, dt)
-    widths = [torch.as_tensor(hi - lo, device=dev) for dev in ranks.devices]
+    states, n_host = _initial_states(cfg, ranks, dt)
+    widths = [to_device(hi - lo, torch.float64, dev) for dev in ranks.devices]
+    counts = [to_device(k, torch.int64, dev) for k, dev in zip(n_host, ranks.devices)]
     ladder = eval_ladder(cfg)
-    adv_ladder = advance_ladder(cfg)
-    C = cfg.capacity
-    limit = 3 * C // 4
-
+    landed = LandedCounts(cfg.sync_every, n, ranks.first)
     history = []
-    moved = 0
-    converged = False
-    integral = error = 0.0
-    n_active = 0
+    moved = discarded = eval_rows = eval_rows_exact = 0
+    row = None
+    stop = False
     it = 0
     syncs = 0
-    while it < cfg.max_iters:
+    while it < cfg.max_iters and not stop:
+        steps = min(cfg.sync_every, cfg.max_iters - it)
         with recorder.span("dist.dispatch", it=it) as sp:
-            # --- evaluate (window from the rank's local count) -------------------
-            works, ests, errs, acts = [], [], [], []
-            for r, st in enumerate(states):
-                works.append(torch.sum(st.active & st.fresh))
-                st = make_eval_step(cfg, rule, window=region_store.select_window(ladder, n_loc[r]))(st)
-                states[r] = st
-                i_loc, e_loc = st.global_estimates(
-                    window=region_store.select_window(adv_ladder, n_loc[r])
+            snaps, windows = [], []
+            landed.start(n_host)
+            for j in range(steps):
+                bounds = landed.bounds(j, lambda b: grow_bounds(b, cfg))
+                windows.append([region_store.select_window(ladder, b) for b in bounds])
+                states, counts, snap = _iterate(
+                    cfg, rule, ranks, states, counts, bounds, it + j, schedule=schedule,
+                    total_volume=total_volume, widths=widths,
                 )
-                ests.append(i_loc)
-                errs.append(e_loc)
-                acts.append(torch.sum(st.active))
-
-            # --- metadata exchange (the only global sync point) -------------------
-            integral_t = ranks.psum(ests)
-            error_t = ranks.psum(errs)
-            n_global_t = ranks.psum(acts)
-            work_sum, work_max = ranks.psum(works), ranks.pmax(works)
-
-            # --- classify (global equal-share threshold; local advance window) ----
-            fins, windows, n_fin = [], [], []
-            for r, st in enumerate(states):
-                w = region_store.select_window(adv_ladder, advance_target(n_loc[r], C))
-                ww = None if w == C else w
-                sl = slice(None) if ww is None else slice(0, ww)
-                fin = classify(
-                    cfg,
-                    st.est[sl],
-                    st.err[sl],
-                    st.halfw[sl],
-                    st.active[sl],
-                    integral_t.to(st.est.device, non_blocking=True),
-                    total_volume,
-                    widths[r],
-                    n_active=n_global_t.to(st.est.device, non_blocking=True),
-                )
-                fins.append(fin)
-                windows.append(ww)
-                n_fin.append(torch.sum(fin))
-            synced = ranks.gather(
-                [x.double() for x in [integral_t, error_t, work_sum, work_max, *n_fin]]
-            ).tolist()
+                snaps.append(snap)
+                landed.record(j, ranks.gather(counts))
+            rows = torch.stack(snaps).tolist()
             syncs += 1
-            integral, error = synced[0], synced[1]
-            work_sum_h, work_max_h = int(synced[2]), int(synced[3])
-            n_active = sum(n_loc)
-            work_imb = (
-                1.0 - (work_sum_h / n) / max(work_max_h, 1) if work_max_h > 0 else 0.0
-            )
+            kept = []
+            for vals, wins in zip(rows, windows):
+                per = np.asarray(vals[2:]).reshape(n, len(_PER_RANK))
+                row = dict(integral=vals[0], error=vals[1],
+                           **{k: per[:, i] for i, k in enumerate(_PER_RANK)})
+                eval_rows += sum(wins)
+                eval_rows_exact += sum(
+                    region_store.select_window(ladder, int(x)) for x in row["n_rows"])
+                if not stop:
+                    kept.append(row)
+                    budget = max(cfg.abs_tol, abs(row["integral"]) * cfg.rel_tol)
+                    stop = row["error"] <= budget or not row["n_rows"].any()
+            discarded += steps - len(kept)
+            sp["executed"] = len(kept)
+        for row in kept:
+            n_rows = [int(x) for x in row["n_rows"]]
+            work_sum, work_max = int(row["work"].sum()), int(row["work"].max())
+            work_imb = 1.0 - (work_sum / n) / max(work_max, 1) if work_max > 0 else 0.0
             if dt == torch.float32:
                 work_imb = float(np.float32(work_imb))
-            max_rows, _, _ = balance_stats(n_loc)
-
-            # --- split, then the decentralised redistribution ----------------------
-            for r, st in enumerate(states):
-                states[r] = classify_split_compact(st, fins[r], window=windows[r])
-            n_loc = [next_population(n_loc[r] - int(synced[4 + r]), C) for r in range(n)]
-            if cfg.redistribution != "off":
-                before = n_loc
-                states, n_loc = redistribute(
-                    states, ranks, schedule=schedule, cap=cfg.message_cap,
-                    limit=limit, it=it, n_rows=n_loc,
+            max_rows, _, _ = balance_stats(n_rows)
+            row["n_active"] = sum(n_rows)
+            if recorder.enabled:
+                recorder.gauge("dist.work_imb", work_imb, it=it)
+                recorder.event(
+                    "dist.iter", it=it, integral=row["integral"], error=row["error"],
+                    n_active=row["n_active"], max_rows=max_rows,
                 )
-                moved += sum(max(b - a, 0) for a, b in zip(n_loc, before))
-            for st in states:
-                st.it += 1  # in place, on the device
-            sp["executed"] = 1
-        if recorder.enabled:
-            recorder.gauge("dist.work_imb", work_imb, it=it)
-            recorder.event(
-                "dist.iter", it=it, integral=integral, error=error,
-                n_active=n_active, max_rows=int(max_rows),
-            )
-        history.append((it, integral, error, n_active, work_imb, max_rows))
-        it += 1
+            history.append((it, row["integral"], row["error"], row["n_active"], work_imb, max_rows))
+            moved += int(row["sent"].sum())
+            it += 1
+        n_host = landed.exact(steps - 1)  # landed: the read above synced
 
-        budget = max(cfg.abs_tol, abs(integral) * cfg.rel_tol)
-        if error <= budget:
-            converged = True
-            break
-        if n_active == 0:
-            break
-
-    final = ranks.gather(
-        [st.n_evals.double() for st in states] + [st.overflowed.double() for st in states]
-    ).tolist()
-    syncs += 1
-    evals_per_device = np.asarray(final[:n], np.float64)
-    overflowed = any(final[n:])
-    if converged:
+    integral, error = (row["integral"], row["error"]) if row else (0.0, 0.0)
+    n_active = row["n_active"] if row else 0
+    evals_per_device = row["n_evals"].copy() if row else np.zeros(n)
+    overflowed = bool(row["overflowed"].any()) if row else False
+    budget = max(cfg.abs_tol, abs(integral) * cfg.rel_tol)
+    if row and error <= budget:
         status = "converged"
     elif overflowed:
         status = "capacity"
@@ -281,4 +370,7 @@ def integrate_distributed(
         history=history,
         evals_per_device=evals_per_device,
         moved=moved,
+        discarded=discarded,
+        eval_rows=eval_rows,
+        eval_rows_exact=eval_rows_exact,
     )

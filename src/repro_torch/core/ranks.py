@@ -44,15 +44,6 @@ def rank_device(device) -> torch.device:
     return dev
 
 
-def to_device(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A small host array on ``device`` without making the host wait: staged
-    in pinned memory and copied asynchronously on a CUDA device."""
-    t = torch.as_tensor(np.asarray(values), dtype=dtype)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
 def copy_to(a: np.ndarray, device) -> torch.Tensor:
     """A copy of host array ``a`` on ``device``, never a view of it (on the
     CPU ``torch.as_tensor`` would share ``a``'s memory)."""

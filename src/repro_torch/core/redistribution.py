@@ -8,22 +8,25 @@ policy".  The schedule front-loads power-of-two strides (see
 counter, so the round is picked by a host index (:func:`round_shift`), on
 the counter before the driver bumps it.
 
-Transfer protocol of one round, on the per-rank states of
-:mod:`repro_torch.core.ranks`:
+Transfer protocol of one round (:func:`redistribute`), on the per-rank
+states of :mod:`repro_torch.core.ranks`, with every count on the device:
 
-  phase 1 (stats):   each rank's ``[n_rows, free, surplus, deficit]`` goes to
-                     its upstream and its downstream partner, so donors see
-                     their receiver's room and receivers know what is
-                     coming.  The four numbers are functions of the per-rank
-                     live counts alone, which the host already tracks, so
-                     this phase is host arithmetic (:func:`round_counts`)
-                     and costs no device transfer and no sync.
+  phase 1 (stats):   each rank's ``[n_rows, free, surplus, deficit]`` (int64,
+                     on its device) goes to its upstream and its downstream
+                     partner through ``Ranks.ppermute``, so donors see their
+                     receiver's room and receivers know what is coming; the
+                     fair share comes from ``Ranks.psum`` of the counts.
   phase 2 (payload): the donor's tail window ``[n_rows - n_send, n_rows)``
                      (centres ++ half-widths only: the paper transfers
                      "subregion coordinates rather than full data
-                     structures") is copied to the receiver's device, which
-                     splices it in after its own rows and marks it fresh, so
-                     it is evaluated again there.
+                     structures") goes to the receiver's device as a fixed
+                     ``(cap, 2d)`` block, zeroed past ``n_send``; the
+                     receiver splices it in after its own rows and marks it
+                     fresh, so it is evaluated again there.
+
+The round reads nothing back, so the distributed driver can run several
+iterations per host read.  :func:`round_counts` is the same arithmetic on
+host integers.
 
 A transfer happens only from donor to receiver (a rank with surplus never
 has a deficit, so at most one direction of a pair is live).  The tail
@@ -34,7 +37,7 @@ contiguous without another compaction.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 
@@ -151,53 +154,86 @@ def redistribute(
     cap: int,
     limit: int,
     it: int,
-    n_rows: Optional[Sequence[int]] = None,
-) -> tuple[list[RegionState], list[int]]:
+    n_rows: Sequence[torch.Tensor],
+) -> tuple[list[RegionState], list[torch.Tensor], list[torch.Tensor]]:
     """One redistribution round over the per-rank states, in place.
 
     ``it`` is the iteration counter before the driver bumps it; ``n_rows``
-    the per-rank live counts (read from the states, with one sync, when not
-    given).  Returns the states and their live counts after the round.
+    the per-rank live counts as int64 tensors, each on its rank's device.
+    Nothing is read back: every count and size stays on the device.
+    Returns the states, each rank's live count after the round and the
+    regions each rank sent, as int64 tensors on the ranks' devices.
     """
-    if n_rows is None:
-        n_rows = ranks.gather([s.active.sum() for s in states]).tolist()
-    n_rows = [int(r) for r in n_rows]
-    if ranks.n <= 1 or not schedule:
-        return states, n_rows
+    n_rows = list(n_rows)
+    n = ranks.n
+    if n <= 1 or not schedule:
+        return states, n_rows, [torch.zeros_like(r) for r in n_rows]
     shift = round_shift(schedule, it)
-    n_send, n_recv = round_counts(n_rows, shift, cap, limit)
-    _, up = ring_perms(ranks.n, shift)
+    down, up = ring_perms(n, shift)
 
-    # --- phase 2: payload (coordinates only), donor i -> i + shift ---------
-    payload = []
-    for st, rows, k in zip(states, n_rows, n_send):
-        lo = rows - k
-        payload.append(torch.cat([st.centers[lo:rows], st.halfw[lo:rows]], dim=1))
+    # --- phase 1: stats both ways -------------------------------------------
+    total = ranks.psum(n_rows)
+    fair = torch.stack([total // n, -(-total // n)])  # [fair_lo, fair_hi]
+    stats = []
+    for rows, dev in zip(n_rows, ranks.devices):
+        fair_lo, fair_hi = fair.to(dev, non_blocking=True).unbind()
+        # [n_rows, free, surplus, deficit]; n_rows >= 0 already
+        stats.append(torch.stack([rows, limit - rows, rows - fair_hi, fair_lo - rows]).clamp(min=0))
+    down_stats = ranks.ppermute(stats, down)
+    up_stats = ranks.ppermute(stats, up)
+
+    # --- phase 2: payload (coordinates only), donor i -> i + shift ----------
+    # Every rank sends the same number of rows (cap, or C if smaller: no
+    # more can be live), zeroed past its n_send, so no shape depends on the
+    # counts.  The rows are read at (n_rows - n_send + j) mod C: the sent
+    # ones are where the reference's clamped positions are, and the same
+    # read gives the receiver's splice its old rows.
+    aranges: dict = {}
+    plans, payload = [], []
+    for st, rows, own, ds, us in zip(states, n_rows, stats, down_stats, up_stats):
+        C = st.capacity
+        # n_send = min(cap, surplus, down_free, down_deficit),
+        # n_recv = min(cap, up_surplus, free, deficit)
+        room = torch.stack([ds, own])[:, 1::2].amin(1)
+        offer = torch.stack([own, us])[:, 2]
+        n_send, n_recv = torch.minimum(offer, room).clamp(max=cap).unbind()
+        dev = st.centers.device
+        if dev not in aranges:
+            aranges[dev] = torch.arange(min(cap, C), device=dev)
+        j = aranges[dev]
+        base = rows - n_send
+        dest = (base + j) % C
+        coords = torch.cat([st.centers.index_select(0, dest), st.halfw.index_select(0, dest)], 1)
+        sent = j < n_send
+        payload.append(torch.where(sent[:, None], coords, 0.0))
+        plans.append((j, base, dest, coords, sent, n_send, n_recv))
     incoming = ranks.ppermute(payload, up)
 
-    # --- donor side: retire the sent tail window ---------------------------
-    for st, rows, k in zip(states, n_rows, n_send):
-        st.active[rows - k : rows] = False
-        st.fresh[rows - k : rows] = False
-
-    # --- receiver side: splice into the contiguous tail --------------------
-    after = []
-    for st, rows, k, m, got in zip(states, n_rows, n_send, n_recv, incoming):
-        base = rows - k
-        m = max(min(m, st.capacity - base), 0)  # rows past the store drop
-        after.append(base + m)
-        if m == 0:
-            continue
-        d = st.d
-        sl = slice(base, base + m)
-        st.centers[sl] = got[:m, :d]
-        st.halfw[sl] = got[:m, d:]
-        st.active[sl] = True
-        st.fresh[sl] = True
-        st.est[sl] = 0
-        st.err[sl] = 0
-        st.axis[sl] = 0
-    return states, after
+    # --- retire the sent window, splice the received one ---------------------
+    # Both are rows base + j (a rank sends or receives, never both), written
+    # at (base + j) mod C: distinct positions, so the write is deterministic.
+    # A row neither sent nor received gets its old value back, and a
+    # received row past the store is dropped.
+    after, moved = [], []
+    for st, (j, base, dest, coords, sent, n_send, n_recv), got in zip(
+        states, plans, incoming
+    ):
+        C, d = st.capacity, st.d
+        kept = torch.minimum(n_recv, C - base)
+        recv = j < kept
+        new = torch.where(recv[:, None], got, coords)
+        st.centers.index_copy_(0, dest, new[:, :d])
+        st.halfw.index_copy_(0, dest, new[:, d:])
+        for field in ("est", "err", "axis"):
+            t = getattr(st, field)
+            t.index_copy_(0, dest, t.index_select(0, dest).masked_fill(recv, 0))
+        keep = ~sent
+        for field in ("active", "fresh"):
+            t = getattr(st, field)
+            t.index_copy_(0, dest, t.index_select(0, dest) & keep | recv)
+        after.append(base + kept)
+        moved.append(n_send)
+    return states, after, moved
 
 
 def balance_stats(n_rows: Sequence[int]) -> tuple[int, float, float]:

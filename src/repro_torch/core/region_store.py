@@ -196,6 +196,15 @@ def write_slot(stacked: RegionState, slot: int, single: RegionState) -> RegionSt
     return stacked
 
 
+def to_device(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` without making the host wait: staged
+    in pinned memory and copied asynchronously on a CUDA device."""
+    t = torch.as_tensor(np.asarray(values), dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> RegionState:
     """Build a state from numpy arrays, one per field of :class:`RegionState`.
 

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core import gauss_kronrod, genz_malik
@@ -26,6 +25,7 @@ from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.error import two_level_error
 from repro_torch.core.genz_malik import gm_eval_reference, row_prod
 from repro_torch.core.integrands import get as get_integrand, parse_spec
+from repro_torch.core.region_store import to_device
 from repro_torch.kernels import ops as kernel_ops
 
 
@@ -89,16 +89,15 @@ class GenzMalikRule:
         self._theta_on = {}  # (device, dtype) -> theta as tensors there
 
     def _theta(self, like: torch.Tensor):
-        """Theta's leaves as tensors on ``like``'s device, copied once: a
-        copy from pageable host memory per evaluate step would make the
+        """Theta's leaves as tensors on ``like``'s device, copied once and
+        through pinned memory: a copy from pageable host memory makes the
         host wait for the device."""
         if self.theta is None:
             return None
         key = (like.device, like.dtype)
         if key not in self._theta_on:
             self._theta_on[key] = {
-                k: torch.as_tensor(np.asarray(v), dtype=like.dtype, device=like.device)
-                for k, v in self.theta.items()
+                k: to_device(v, like.dtype, like.device) for k, v in self.theta.items()
             }
         return self._theta_on[key]
 

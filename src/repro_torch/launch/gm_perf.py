@@ -4,6 +4,8 @@
         [--batch 1048576] [--blocks 64,128,256,512] [--dtype float64] [--reps 50]
     python src/repro_torch/launch/gm_perf.py ptxas [--sass Li5E2F4]
     python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed,service,vegas]
+        [--sync-every K] [--repeat N]
+    python src/repro_torch/launch/gm_perf.py ops [--sync-every K]
     python src/repro_torch/launch/gm_perf.py sums [--kernel-only]
     python src/repro_torch/launch/gm_perf.py sums-ablate
     python src/repro_torch/launch/gm_perf.py vegas
@@ -22,11 +24,15 @@ report, with the build's seconds; with ``--sass NAME`` also the SASS opcode
 counts (``cuobjdump -sass``) of the kernels whose mangled name contains
 NAME (e.g. ``Li5E2F4``).
 
-``profile`` runs the three main-path cases once to build and warm up, once
-under the host clock, and once under ``torch.profiler``, and splits the
+``profile`` runs the three main-path cases once to build and warm up,
+``--repeat`` times under the host clock, and once under ``torch.profiler``, and splits the
 profiled run's wall time into the GM kernel, the other device work (the
 advance: sort, gathers, tree sums, classify) and the time the device sat
-idle (host gaps).  ``--drivers`` picks the drivers, each on every case:
+idle (host gaps).  ``--sync-every K`` sets the device and distributed
+drivers' iterations per dispatch; a distributed row also gives the
+iterations discarded past the stop, the rows evaluated against those of
+exact windows and the discarded iterations' device seconds
+(:func:`_dispatch_split`).  ``--drivers`` picks the drivers, each on every case:
 ``integrate`` (the default), ``device`` (``integrate_device``) and
 ``distributed`` (``integrate_distributed`` on four ranks over the visible
 GPUs, capacity per rank as the case's), ``service`` (the batch service's
@@ -34,6 +40,12 @@ one-rank fleet of ``chip_smoke.py`` phase 9, :data:`SERVICE`, in place of
 the three cases) and ``vegas`` (``integrate_vegas`` on the first of
 :data:`VEGAS_CASES`, with its device time split by stage: sample + map,
 integrand, reductions, refine, from the engine's named ranges).
+
+``ops`` counts, on the CPU, the torch operations that
+``integrate_distributed`` enqueues per rank and iteration run, by phase
+(:func:`cmd_ops`): the host's enqueue is what holds the four-rank walls.
+It uses only names the distributed driver has had since its port, so it
+counts another checkout put first on ``PYTHONPATH``.
 
 ``sums`` times the VEGAS sums kernel (``kernels.vegas_sums.vegas_sums``) at
 the three shapes of :data:`SUMS_TIMED`: CUDA events per call, its chunk
@@ -445,10 +457,11 @@ def cmd_profile(args):
     from repro_torch.core.ranks import cuda_devices
     from repro_torch.mc import integrate_vegas
 
+    ranks = 4
     drivers = {
         "integrate": lambda cfg: adaptive.integrate(cfg, device="cuda"),
         "device": lambda cfg: adaptive.integrate_device(cfg, device="cuda"),
-        "distributed": lambda cfg: integrate_distributed(cfg, devices=cuda_devices(4)),
+        "distributed": lambda cfg: integrate_distributed(cfg, devices=cuda_devices(ranks)),
     }
     class Fleet:  # the service's run, read like a driver's result
         def __init__(self, devices):
@@ -472,14 +485,18 @@ def cmd_profile(args):
         if driver in own_case:
             cfg = vegas_cfg if driver == "vegas" else None
         else:
-            cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity)
+            cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity,
+                                   **({"sync_every": args.sync_every} if args.sync_every else {}))
         run(cfg)  # build, allocate, warm up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = run(cfg)
-        torch.cuda.synchronize()
-        wall_plain = time.perf_counter() - t0
+        walls = []
+        for _ in range(args.repeat):
+            t0 = time.perf_counter()
+            res = run(cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_plain = float(np.median(walls))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run(cfg)
@@ -506,16 +523,73 @@ def cmd_profile(args):
         print(json.dumps(dict(
             driver=driver, case=case, d=d, iterations=res.iterations, n_evals=res.n_evals,
             host_syncs=res.host_syncs,
-            wall_s=wall_plain, profiled_wall_s=wall, device_busy_s=total,
+            wall_s=wall_plain, walls_s=walls, profiled_wall_s=wall, device_busy_s=total,
             gm_kernel_s=gm, other_device_s=total - gm, idle_s=wall - total,
             gm_share=gm / wall, advance_share=(total - gm) / wall,
             idle_share=(wall - total) / wall, device_s_by_kind=by_kind,
             top_kernels=[(k[:80], v / 1e6) for k, v in top], card=smi,
             **({"mc_samples": cfg.mc_samples, "peak_bytes": torch.cuda.max_memory_allocated(),
                 **_stage_split(prof)} if driver == "vegas" else {}),
+            **(_dispatch_split(prof, res, ranks, cfg) if driver == "distributed" else {}),
         )), flush=True)
         if total == 0.0:
             raise SystemExit("the profiler recorded no device time")
+
+
+# ``ops``'s cases: MAIN_CASES' f4 and f6 at a store the CPU runs in seconds
+OPS_CASES = [("f4", 5, 1e-7, 1 << 14), ("f6", 5, 1e-4, 1 << 14)]
+
+
+def cmd_ops(args):
+    """Torch operations per rank and iteration run of four CPU ranks, by
+    phase: ``round`` (``redistribute``), ``advance`` (``classify`` and
+    ``classify_split_compact``) and ``other`` (evaluate around the rule,
+    metadata, snapshots).  The GM rule's own operations are left out: on
+    the card they are one kernel launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import rules
+    from repro_torch.core.config import QuadratureConfig
+
+    phase = ["other"]
+    counts = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts[phase[-1]] += 1
+            return func(*args, **(kwargs or {}))
+
+    def labelled(fn, label):
+        def run(*a, **k):
+            phase.append(label)
+            try:
+                return fn(*a, **k)
+            finally:
+                phase.pop()
+        return run
+
+    patches = [(dist_mod, name, label) for name, label in (
+        ("redistribute", "round"), ("classify", "advance"), ("classify_split_compact", "advance"))]
+    patches.append((rules.GenzMalikRule, "eval_batch", "rule"))
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+    for owner, name, label in patches:
+        setattr(owner, name, labelled(getattr(owner, name), label))
+    try:
+        for name, d, rel_tol, capacity in OPS_CASES:
+            cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity,
+                                   **({"sync_every": args.sync_every} if args.sync_every else {}))
+            counts.clear()
+            with Count():
+                res = dist_mod.integrate_distributed(cfg, devices=["cpu"] * 4)
+            run = 4 * (res.iterations + getattr(res, "discarded", 0))
+            per = {k: v / run for k, v in counts.items() if k != "rule"}
+            print(json.dumps(dict(case=name, d=d, capacity=capacity, iterations=res.iterations,
+                                  ops_per_rank_iteration=sum(per.values()), by_phase=per,
+                                  package=dist_mod.__file__)), flush=True)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
 
 
 def cmd_sums(args):
@@ -608,6 +682,27 @@ def cmd_vegas(args):
                           package=repro_torch.__file__, card=smi)), flush=True)
 
 
+def _dispatch_split(prof, res, ranks, cfg):
+    """The distributed driver's fused dispatch: K, the iterations run past
+    the stop and discarded, the rows its evaluate steps covered against
+    those of windows sized from the exact counts, and the device seconds
+    (all kernels; the GM kernel) from the first discarded iteration's first
+    GM launch to the end of the run (the ranks share one card's stream, so
+    that tail is the discarded iterations' work)."""
+    from torch.autograd import DeviceType
+
+    kernels = sorted((evt.time_range.start, evt.time_range.end, evt.name)
+                     for evt in prof.events() if evt.device_type == DeviceType.CUDA)
+    gm = [start for start, _, name in kernels if "gm_eval_kernel" in name]
+    kept = ranks * res.iterations
+    cut = gm[kept] if len(gm) > kept else float("inf")
+    tail = [(end - start, name) for start, end, name in kernels if start >= cut]
+    return {"sync_every": cfg.sync_every, "discarded": res.discarded,
+            "eval_rows": res.eval_rows, "eval_rows_exact": res.eval_rows_exact,
+            "discarded_device_s": sum(us for us, _ in tail) / 1e6,
+            "discarded_gm_s": sum(us for us, name in tail if "gm_eval_kernel" in name) / 1e6}
+
+
 def _stage_split(prof):
     """Device seconds of the kernels inside each of the engine's named
     ranges (a kernel belongs to the range whose device span holds its
@@ -665,15 +760,23 @@ def main(argv=None):
                     help="the kernel's times alone (no plain version, no index_add_)")
     sub.add_parser("sums-ablate", help="vegas_sums whole and cut (SUMS_ABLATIONS), in turns")
     sub.add_parser("vegas", help="walls and estimate bits of phases 10a and 11a")
+    o = sub.add_parser("ops", help="torch operations per rank and iteration of the "
+                                   "distributed driver, by phase (CPU)")
+    o.add_argument("--sync-every", type=int, default=None)
     p = sub.add_parser("profile", help="torch.profiler breakdown of the main path")
     p.add_argument("--trace-dir", default=None, help="write Chrome traces here")
     p.add_argument("--drivers", type=_drivers, default=["integrate"],
                    help="comma-separated: integrate, device, distributed, service, vegas")
+    p.add_argument("--repeat", type=int, default=1,
+                   help="unprofiled runs per case; wall_s is their median")
+    p.add_argument("--sync-every", type=int, default=None,
+                   help="iterations per dispatch of the device and distributed drivers "
+                        "(default: the config's)")
     args = ap.parse_args(argv)
-    if args.cmd != "ptxas" and not torch.cuda.is_available():
+    if args.cmd not in ("ptxas", "ops") and not torch.cuda.is_available():
         raise SystemExit("gm_perf: no CUDA device; this tool measures the card only")
     {"time": cmd_time, "ptxas": cmd_ptxas, "profile": cmd_profile, "sums": cmd_sums,
-     "sums-ablate": cmd_sums_ablate, "vegas": cmd_vegas}[args.cmd](args)
+     "sums-ablate": cmd_sums_ablate, "vegas": cmd_vegas, "ops": cmd_ops}[args.cmd](args)
 
 
 if __name__ == "__main__":

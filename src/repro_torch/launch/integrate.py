@@ -104,8 +104,7 @@ def main(argv=None) -> None:
         "--sync-every",
         type=int,
         default=4,
-        help="iterations per host sync of --device-loop (no effect on the "
-        "distributed driver, which syncs once per iteration)",
+        help="iterations per host sync of --device-loop and of --devices N",
     )
     ap.add_argument(
         "--device-loop",
@@ -177,7 +176,8 @@ def main(argv=None) -> None:
     elif devices is not None:
         res = integrate_distributed(cfg, devices=devices, recorder=recorder)
         print(res.summary())
-        print(f"devices={res.n_devices} mean_imbalance={res.mean_imbalance():.3f}")
+        print(f"devices={res.n_devices} mean_imbalance={res.mean_imbalance():.3f} "
+              f"host_syncs={res.host_syncs}")
     elif args.device_loop:
         res = integrate_device(cfg, device=args.device, recorder=recorder)
         print(res.summary())

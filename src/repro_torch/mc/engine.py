@@ -55,7 +55,8 @@ from repro_torch.core.adaptive import AdaptiveResult, resolve_device
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand, get as get_integrand
 from repro_torch.core.integrands import get_param, parse_spec
-from repro_torch.core.ranks import Ranks, copy_to, cuda_devices, rank_device, to_device
+from repro_torch.core.ranks import Ranks, copy_to, cuda_devices, rank_device
+from repro_torch.core.region_store import to_device
 from repro_torch.kernels.vegas_sums import vegas_sums
 from repro_torch.mc import grid as grid_lib
 from repro_torch.mc import stratified

@@ -55,14 +55,14 @@ from repro_torch.core.adaptive import (
 from repro_torch.core.classify import classify, nonfinite_mask
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand, get_param
-from repro_torch.core.ranks import Ranks, copy_to, cuda_devices, to_device
+from repro_torch.core.ranks import Ranks, copy_to, cuda_devices
 from repro_torch.core.redistribution import (
     exchange_pair_stats,
     make_schedule,
     ring_perms,
     round_shift,
 )
-from repro_torch.core.region_store import FIELDS, masked_sums
+from repro_torch.core.region_store import FIELDS, masked_sums, to_device
 from repro_torch.core.rules import make_rule
 from repro_torch.core.split import ROWS, SCALARS, next_population, split_compact_rows
 from repro_torch.telemetry.core import NULL

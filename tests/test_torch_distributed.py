@@ -7,6 +7,7 @@ runs the same cases on ``["cpu"] * 4`` ranks from this process.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -17,12 +18,14 @@ import torch
 
 from repro.core import distributed as jdist
 from repro.core.config import QuadratureConfig as JConfig
+from repro_torch.core import adaptive as tad
 from repro_torch.core import distributed as tdist
 from repro_torch.core import integrands as tint
 from repro_torch.core import redistribution as tred
 from repro_torch.core.config import QuadratureConfig as TConfig
 from repro_torch.core.ranks import Ranks
 from repro_torch.core.region_store import FIELDS
+from repro_torch.telemetry import MemorySink, Recorder
 
 torch.set_num_threads(1)
 
@@ -39,11 +42,15 @@ import jax
 jax.config.update("jax_enable_x64", True)
 from repro.core.config import QuadratureConfig
 from repro.core.distributed import integrate_distributed
+from repro.telemetry import MemorySink, Recorder
 assert len(jax.devices()) == int(sys.argv[1])
 out = {}
 for key, kw in json.loads(sys.argv[2]).items():
-    r = integrate_distributed(QuadratureConfig(**kw))
+    sink = MemorySink()
+    r = integrate_distributed(QuadratureConfig(**kw), recorder=Recorder(sinks=(sink,)))
     out[key] = dict(
+        executed=[e["executed"] for e in sink.events
+                  if e["kind"] == "span_end" and e["name"] == "dist.dispatch"],
         I=r.integral, eps=r.error, status=r.status, iters=r.iterations,
         n_evals=r.n_evals, evals_per_device=r.evals_per_device.tolist(),
         mean_imbalance=r.mean_imbalance(),
@@ -84,21 +91,38 @@ def reference():
     })
 
 
+def _executed(events):
+    """The ``executed`` count of each ``dist.dispatch`` span, in order."""
+    return [e["executed"] for e in events
+            if e["kind"] == "span_end" and e["name"] == "dist.dispatch"]
+
+
 @pytest.fixture(scope="module")
-def port():
-    return {
-        f"{name}-{policy}": tdist.integrate_distributed(
-            _config(name, d, tol, policy), devices=["cpu"] * 4
-        )
-        for name, d, tol in CASES
-        for policy in POLICIES
-    }
+def port_runs():
+    """Each case's result at the default K = 4, and its dispatches'
+    ``executed`` counts (the recorder changes no bit)."""
+    out = {}
+    for name, d, tol in CASES:
+        for policy in POLICIES:
+            sink = MemorySink()
+            res = tdist.integrate_distributed(
+                _config(name, d, tol, policy), devices=["cpu"] * 4,
+                recorder=Recorder(sinks=(sink,)),
+            )
+            out[f"{name}-{policy}"] = res, _executed(sink.events)
+    return out
+
+
+@pytest.fixture(scope="module")
+def port(port_runs):
+    return {key: res for key, (res, _) in port_runs.items()}
 
 
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("name,d,tol", CASES)
-def test_matches_reference_driver(reference, port, name, d, tol, policy):
-    ref, got = reference[f"{name}-{policy}"], port[f"{name}-{policy}"]
+def test_matches_reference_driver(reference, port_runs, name, d, tol, policy):
+    ref = reference[f"{name}-{policy}"]
+    got, executed = port_runs[f"{name}-{policy}"]
     exact = tint.get(name).exact(d)
     assert got.status == ref["status"] == "converged", (got.summary(), ref)
     assert abs(got.integral - exact) / abs(exact) <= 10 * tol
@@ -108,8 +132,9 @@ def test_matches_reference_driver(reference, port, name, d, tol, policy):
     assert got.evals_per_device.tolist() == ref["evals_per_device"]
     assert [[h[0], h[3], h[5]] for h in got.history] == ref["history"]
     assert got.n_devices == 4 and len(got.history) == got.iterations
-    # one stacked read per iteration, and one at the end
-    assert got.host_syncs == got.iterations + 1
+    # one read per fused dispatch, each running the reference's iterations
+    assert executed == ref["executed"]
+    assert got.host_syncs == len(executed) <= math.ceil(got.iterations / 4) + 1
 
 
 def test_three_rank_tie_difference_is_bounded():
@@ -123,7 +148,8 @@ def test_three_rank_tie_difference_is_bounded():
     ref = _run_reference(3, {"f2": fields})["f2"]
 
     # record, per round, the relative error gap between the last parent
-    # whose children a donor sends and the next one
+    # whose children a donor sends and the next one; a dispatch runs on past
+    # convergence, so each gap keeps its round's iteration
     survivors, gaps = [], []  # per split: errors of the survivors, sorted
     split, redistribute = tdist.classify_split_compact, tdist.redistribute
 
@@ -134,11 +160,12 @@ def test_three_rank_tie_difference_is_bounded():
         return split(st, fin, window)
 
     def spy_round(states, ranks, *, schedule, cap, limit, it, n_rows):
-        n_send, _ = tred.round_counts(n_rows, tred.round_shift(schedule, it), cap, limit)
+        rows = [int(r) for r in n_rows]  # the counts, read on the CPU
+        n_send, _ = tred.round_counts(rows, tred.round_shift(schedule, it), cap, limit)
         for r, k in enumerate(n_send):
             errs = survivors[len(survivors) - ranks.n + r]
             if 0 < k < len(errs):
-                gaps.append(float((errs[k - 1] - errs[k]) / errs[k - 1]))
+                gaps.append((it, float((errs[k - 1] - errs[k]) / errs[k - 1])))
         return redistribute(states, ranks, schedule=schedule, cap=cap, limit=limit,
                             it=it, n_rows=n_rows)
 
@@ -146,6 +173,7 @@ def test_three_rank_tie_difference_is_bounded():
         mp.setattr(tdist, "classify_split_compact", spy_split)
         mp.setattr(tdist, "redistribute", spy_round)
         got = tdist.integrate_distributed(TConfig(**fields), devices=["cpu"] * 3)
+    gaps = [g for it, g in gaps if it < got.iterations]
     # 8 of the 16 cuts fall between parents of exactly equal error, and
     # two more within 1e-14
     assert len(gaps) == 16
@@ -180,18 +208,160 @@ def test_work_is_distributed(port):
         assert min(per_dev) > 0.01 * per_dev.sum() / len(per_dev), (key, per_dev)
 
 
+def _same_run(got, base):
+    assert (got.status, got.integral, got.error, got.iterations, got.n_evals) == (
+        base.status, base.integral, base.error, base.iterations, base.n_evals
+    )
+    assert got.history == base.history and got.moved == base.moved
+    np.testing.assert_array_equal(got.evals_per_device, base.evals_per_device)
+
+
+# a max_iters that cuts every K > 1 mid-block
+_CUT = 11
+
+
+@pytest.fixture(scope="module")
+def cut_runs():
+    """The runs of :data:`CASES` 0 and 2 cut at :data:`_CUT` iterations,
+    at K = 1."""
+    return {
+        name: tdist.integrate_distributed(
+            _config(name, d, tol, "ring", sync_every=1, max_iters=_CUT),
+            devices=["cpu"] * 4,
+        )
+        for name, d, tol in (CASES[0], CASES[2])
+    }
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 7])
 @pytest.mark.parametrize("name,d,tol", [CASES[0], CASES[2]])
-def test_results_do_not_depend_on_sync_every(port, name, d, tol):
-    base = port[f"{name}-ring"]
-    for k in (1, 4):
-        got = tdist.integrate_distributed(
-            _config(name, d, tol, "ring", sync_every=k), devices=["cpu"] * 4
-        )
-        assert (got.integral, got.error, got.iterations, got.n_evals) == (
-            base.integral, base.error, base.iterations, base.n_evals
-        )
-        assert got.history == base.history
-        np.testing.assert_array_equal(got.evals_per_device, base.evals_per_device)
+def test_results_do_not_depend_on_sync_every(port, cut_runs, name, d, tol, k):
+    got = tdist.integrate_distributed(
+        _config(name, d, tol, "ring", sync_every=k), devices=["cpu"] * 4
+    )
+    _same_run(got, port[f"{name}-ring"])
+    assert got.host_syncs == math.ceil(got.iterations / k)
+    assert got.discarded == got.host_syncs * k - got.iterations
+    if k == 1:
+        assert got.eval_rows == got.eval_rows_exact
+    cut = tdist.integrate_distributed(
+        _config(name, d, tol, "ring", sync_every=k, max_iters=_CUT), devices=["cpu"] * 4
+    )
+    assert cut.status == "max_iters" and cut.iterations == _CUT
+    _same_run(cut, cut_runs[name])
+    assert cut.host_syncs == math.ceil(_CUT / k)
+
+
+@pytest.mark.parametrize("name,d,tol", [CASES[0], CASES[2]])
+def test_grown_windows_give_the_same_bits(port, monkeypatch, name, d, tol):
+    """No count copy lands inside a dispatch, as when the host runs ahead of
+    the card: every window is sized from the bound grown since the
+    dispatch's start."""
+    monkeypatch.setattr(tad, "_landed", lambda event: False)
+    got = tdist.integrate_distributed(
+        _config(name, d, tol, "ring", sync_every=7), devices=["cpu"] * 4
+    )
+    _same_run(got, port[f"{name}-ring"])
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name,d,tol", [CASES[0], CASES[2]])
+def test_grown_bounds_cover_the_counts(monkeypatch, name, d, tol, policy):
+    """With no count copy landing, every rank's grown bound covers its live
+    count at every iteration run; with rounds it is tighter than doubling
+    plus a full message a rank an iteration."""
+    monkeypatch.setattr(tad, "_landed", lambda event: False)
+    seen = []
+    iterate = tdist._iterate
+
+    def spy(cfg, rule, ranks, states, counts, bounds, it, **kw):
+        seen.append((it, list(bounds), [int(c) for c in counts]))
+        return iterate(cfg, rule, ranks, states, counts, bounds, it, **kw)
+
+    monkeypatch.setattr(tdist, "_iterate", spy)
+    k = 7
+    cfg = _config(name, d, tol, policy, sync_every=k)
+    got = tdist.integrate_distributed(cfg, devices=["cpu"] * 4)
+    assert got.status == "converged" and len(seen) == got.iterations + got.discarded
+    loose = tight = 0
+    for it, bounds, counts in seen:
+        assert all(c <= b <= cfg.capacity for b, c in zip(bounds, counts)), (it, bounds, counts)
+        if it % k:  # a grown bound: compare it with doubling plus a message
+            prev = next(b for i, b, _ in seen if i == it - 1)
+            cap = cfg.message_cap if policy == "ring" else 0
+            loose += sum(min(2 * b + cap, cfg.capacity) for b in prev)
+            tight += sum(bounds)
+    assert tight < loose if policy == "ring" else tight == loose
+    assert got.eval_rows > got.eval_rows_exact
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("policy", POLICIES)
+def test_grow_bounds_cover_every_round(seed, policy):
+    """For counts under their bounds, split to at most twice each, the
+    counts after any round of the schedule are under ``grow_bounds``;
+    one rank starts empty, so it receives more than twice its bound."""
+    rng = np.random.default_rng(seed)
+    n = 3 + seed % 4
+    cfg = _config("f4", 4, 1e-6, policy, message_cap=int(rng.integers(1, 600)))
+    C = cfg.capacity
+    bounds = [int(b) for b in rng.integers(0, C // 2, n)]
+    bounds[seed % n] = 0
+    post = [int(rng.integers(min(b, C), min(2 * b, C) + 1)) for b in bounds]
+    grown = tdist.grow_bounds(bounds, cfg)
+    schedule = tred.make_schedule(n)
+    for it in range(len(schedule)):
+        after = post
+        if policy == "ring":
+            n_send, n_recv = tred.round_counts(
+                post, tred.round_shift(schedule, it), cfg.message_cap, tdist._round_limit(C))
+            after = [p - s + r for p, s, r in zip(post, n_send, n_recv)]
+        assert all(a <= g <= C for a, g in zip(after, grown)), (it, post, after, grown)
+    if policy == "ring":
+        assert max(a - 2 * b for a, b in zip(after, bounds)) > 0
+
+
+def test_no_host_read_inside_a_dispatch(monkeypatch):
+    """Inside an iteration nothing reads a tensor's value: no item, no
+    conversion to a Python number or truth value, no nonzero or boolean
+    mask; the one read of each dispatch is a tolist of its snapshots."""
+    inside, reads = [], []
+
+    def refuse(name, orig):
+        def method(self, *args, **kwargs):
+            assert not inside, f"host read inside an iteration: {name}"
+            return orig(self, *args, **kwargs)
+        return method
+
+    for name in ("item", "__bool__", "__int__", "__float__", "__index__", "nonzero",
+                 "numpy", "cpu", "masked_select"):
+        monkeypatch.setattr(torch.Tensor, name, refuse(name, getattr(torch.Tensor, name)))
+    monkeypatch.setattr(torch, "nonzero", refuse("torch.nonzero", torch.nonzero))
+
+    def no_mask(name, orig):
+        def method(self, idx, *args):
+            for i in idx if isinstance(idx, tuple) else (idx,):
+                assert not (isinstance(i, torch.Tensor) and i.dtype == torch.bool), name
+            return orig(self, idx, *args)
+        return method
+
+    for name in ("__getitem__", "__setitem__"):
+        monkeypatch.setattr(torch.Tensor, name, no_mask(name, getattr(torch.Tensor, name)))
+    tolist = torch.Tensor.tolist
+    monkeypatch.setattr(torch.Tensor, "tolist", lambda self: reads.append(1) or tolist(self))
+    iterate = tdist._iterate
+
+    def counted(*args, **kwargs):
+        inside.append(1)
+        try:
+            return iterate(*args, **kwargs)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(tdist, "_iterate", counted)
+    got = tdist.integrate_distributed(_config("f6", 3, 1e-5, "ring"), devices=["cpu"] * 4)
+    assert got.status == "converged" and got.moved > 0
+    assert len(reads) == got.host_syncs == math.ceil(got.iterations / 4)
 
 
 @pytest.mark.parametrize("n_ranks", [1, 2, 3, 4, 8])
@@ -237,10 +407,12 @@ def test_selftest_runs_on_cpu_ranks():
     "args",
     [
         ["--devices", "4", "--integrand", "f6", "--d", "3", "--rel-tol", "1e-4"],
+        ["--devices", "4", "--integrand", "f6", "--d", "3", "--rel-tol", "1e-4",
+         "--sync-every", "1"],
         ["--device-loop", "--integrand", "f4", "--d", "3", "--rel-tol", "1e-6"],
         ["--rule", "gauss_kronrod", "--integrand", "f4", "--d", "2", "--rel-tol", "1e-8"],
     ],
-    ids=["devices", "device-loop", "gauss-kronrod"],
+    ids=["devices", "devices-sync-every-1", "device-loop", "gauss-kronrod"],
 )
 def test_cli_paths_on_cpu(args):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -254,5 +426,9 @@ def test_cli_paths_on_cpu(args):
     assert "[converged]" in lines[0]
     if "--devices" in args:
         assert lines[1].startswith("devices=4 mean_imbalance=")
+        # one host read per --sync-every iterations (default 4)
+        k = int(args[args.index("--sync-every") + 1]) if "--sync-every" in args else 4
+        iters = int(lines[0].split("iters=")[1].split()[0])
+        assert int(lines[1].split("host_syncs=")[1]) == math.ceil(iters / k)
     assert lines[-1].startswith("exact=")
     assert float(lines[-1].split("true_rel_err=")[1]) <= 5 * float(args[args.index("--rel-tol") + 1])

@@ -75,16 +75,27 @@ def _jax_round(arrays, n, cap, limit):
     return {k: np.asarray(getattr(out, k)) for k in FIELDS}
 
 
-def _port_round(arrays, n, cap, limit, it, n_rows="host"):
+def _port_round(arrays, n, cap, limit, it, n_rows="given", sent=None):
+    """The port's round on the per-rank states of ``arrays``: the fields
+    after it and the live counts it returns (read here, after the round).
+    ``n_rows="given"`` passes the live counts as int64 tensors made on the
+    host, ``"summed"`` sums them from the states with torch; ``sent``
+    collects the regions each rank sent."""
     ranks = Ranks(["cpu"] * n)
     states = ranks.states_from_stacked(arrays)
-    rows = arrays["active"].sum(axis=1).tolist() if n_rows == "host" else None
-    states, after = tred.redistribute(
+    if n_rows == "given":
+        rows = [torch.tensor(int(c)) for c in arrays["active"].sum(axis=1)]
+    else:
+        rows = [st.active.sum() for st in states]
+    states, after, moved = tred.redistribute(
         states, ranks, schedule=tred.make_schedule(n), cap=cap, limit=limit,
         it=it, n_rows=rows,
     )
+    assert all(t.dtype == torch.int64 and t.dim() == 0 for t in after + moved)
+    if sent is not None:
+        sent.extend(int(k) for k in moved)
     got = {k: np.stack([getattr(s, k).numpy() for s in states]) for k in FIELDS}
-    return got, after
+    return got, [int(a) for a in after]
 
 
 def _counts(n, seed):
@@ -106,13 +117,67 @@ def test_round_matches_reference_bit_for_bit(n, it):
     for k in FIELDS:
         assert got[k].dtype == ref[k].dtype, k
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    # the host's transfer sizes agree with the device's result
+    # the counts the round returns are those of the reference's result
     assert after == ref["active"].sum(axis=1).tolist()
+
+
+@pytest.mark.parametrize("it", range(13))
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_device_counts_match_host_arithmetic(n, it):
+    """The round's counts and sizes, computed on the device, against the
+    same arithmetic on host integers (``round_counts``) and the reference's
+    result: each rank's new count, and the regions it sent, which its
+    partner's count gains."""
+    seed = 1000 * n + it
+    counts = _counts(n, seed)
+    arrays = _stacked_arrays(n, counts, it, seed)
+    sent = []
+    got, after = _port_round(arrays, n, _CAP, _LIMIT, it, sent=sent)
+    ref = _jax_round(arrays, n, _CAP, _LIMIT)
+    shift = tred.round_shift(tred.make_schedule(n), it)
+    n_send, n_recv = tred.round_counts(counts, shift, _CAP, _LIMIT)
+    assert sent == n_send
+    assert n_recv == [n_send[(r - shift) % n] for r in range(n)]
+    assert after == [c - k + m for c, k, m in zip(counts, n_send, n_recv)]
+    assert after == ref["active"].sum(axis=1).tolist()
+    assert sum(max(c - a, 0) for c, a in zip(counts, after)) == sum(sent)
+    # the full rank (seeds with seed % 3 == 0) takes nothing
+    full = (seed + 1) % n
+    assert n_recv[full] == 0 and after[full] <= counts[full]
+
+
+def test_round_work_does_not_depend_on_counts():
+    """The round enqueues the same operations on the same shapes whatever
+    the counts are, a rank that moves nothing included: nothing about the
+    work depends on a value the host would have to read."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Trace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            shapes = [tuple(o.shape) for o in (out if isinstance(out, (tuple, list)) else [out])
+                      if isinstance(o, torch.Tensor)]
+            self.ops.append((str(func), shapes))
+            return out
+
+    traces = []
+    for counts in ([40, 0, 5, 10], [12, 12, 12, 12], [0, 0, 0, 0], [48, 48, 0, 64]):
+        ranks = Ranks(["cpu"] * 4)
+        states = ranks.states_from_stacked(_stacked_arrays(4, counts, 0, 3))
+        with Trace() as trace:
+            tred.redistribute(states, ranks, schedule=tred.make_schedule(4), cap=_CAP,
+                              limit=_LIMIT, it=0, n_rows=[st.active.sum() for st in states])
+        traces.append(trace.ops)
+    assert all(t == traces[0] for t in traces[1:])
 
 
 def test_round_reads_counts_when_not_given():
     arrays = _stacked_arrays(4, [40, 0, 5, 10], 0, 3)
-    got, after = _port_round(arrays, 4, 16, 48, 0, n_rows=None)
+    got, after = _port_round(arrays, 4, 16, 48, 0, n_rows="summed")
     ref = _jax_round(arrays, 4, 16, 48)
     assert after == [27, 13, 5, 10] == ref["active"].sum(axis=1).tolist()
     for k in FIELDS:
