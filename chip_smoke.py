@@ -18,6 +18,14 @@ Phases, each of which passes or raises (a failure exits nonzero):
    in {1, 7, 256, 1000}, genz_gaussian and genz_product_peak at d in
    {2, 5, 8}); float64 at the bars of tests/test_kernels.py and within
    1e-14 relative, float32 against the float64 plain version;
+3b. the redistribution round's pack and splice kernels against their
+   plain versions on the CPU, bit for bit (plan, payload, every field of
+   the store, the count after the round and the rows sent), over
+   gm_perf.py's round_grid: 2, 3, 4, 8 ranks, every shift of each
+   schedule, float64 and float32, d = 3, 5, 8, an empty rank, ranks full
+   to the round's limit and to the store, a message cap above the store;
+   then each kernel timed at phase 6's shape (cap 512, 2^22 rows a rank,
+   d = 5 and 8) beside its plain version on the card and its byte bound;
 4. main path: repro_torch.core.adaptive.integrate on the card at capacity
    2^22 in float64, three cases, each of which must converge to its exact
    value in the iterations and evaluations recorded for it, with one
@@ -25,16 +33,20 @@ Phases, each of which passes or raises (a failure exits nonzero):
 5. device loop: repro_torch.core.adaptive.integrate_device on the same
    three cases, bit-equal to phase 4's integrate (integral, error,
    iterations, evaluations), with its host syncs and wall time beside
-   integrate's;
+   integrate's; one kernel launch per evaluate step, from iterations + 1
+   to the whole blocks' steps (the loop stops enqueueing at the first
+   landed snapshot that shows the stop; the steps past it are discarded);
 6. distributed: repro_torch.core.distributed.integrate_distributed on four
    ranks (rank r on cuda:(r mod device count): on one card they share
    it), capacity 2^22 per rank, float64; each case converges, agrees with
    phase 4's single-device run, spreads the work over every rank, and
    takes the iterations and evaluations recorded for it, at sync_every 1
    (one host read per iteration) and 4 (one per fused dispatch of four),
-   each twice in turns, with the same results at both; one kernel launch
-   per rank per iteration run (a dispatch runs on past convergence), and
-   one synchronising call per dispatch;
+   each twice in turns, with the same results at both; one GM launch per
+   rank per evaluate step enqueued, and one pack and one splice launch per
+   rank per round (a dispatch stops enqueueing at the first landed
+   snapshot that shows the stop; the iterations begun before it are
+   discarded and logged), and one synchronising call per dispatch;
 7. the Gauss-Kronrod rule (torch operations) on the card, with the
    iterations and evaluations of the same run on the CPU;
 8. timings with CUDA events at the main path's window size: the kernel
@@ -209,12 +221,14 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# the three main-path cases, the (integrand, d) timed at B = TIMED_B, and
-# the helpers that gm_perf.py's measurements share with this script
+# the three main-path cases, phase 6's distributed cases, the (integrand,
+# d) timed at B = TIMED_B, and the helpers that gm_perf.py's measurements
+# share with this script
 from repro_torch.launch.gm_perf import (  # noqa: E402
-    MAIN_CASES, PEAK_FP64_FLOPS, PEAK_HBM_BYTES, SUMS_HARD_CASES, SUMS_TIMED, TIMED, TIMED_B,
-    VEGAS_CASES, VEGAS_POOL, bits_equal, card, inputs, pool_thetas, serve_pool, soa,
-    sums_hard_case, sums_inputs, time_ms, time_sums, vegas_case,
+    DIST_CAPACITY, DIST_CASES, MAIN_CASES, PEAK_FP64_FLOPS, PEAK_HBM_BYTES, ROUND_TIMED,
+    SUMS_HARD_CASES, SUMS_TIMED, TIMED, TIMED_B, VEGAS_CASES, VEGAS_POOL, bits_equal, card,
+    inputs, pool_thetas, round_grid, round_vs_plain, serve_pool, soa, sums_hard_case,
+    sums_inputs, time_ms, time_round, time_sums, vegas_case,
 )
 
 # FP64 lanes per SM on Hopper: each issues one add, multiply or FMA per clock
@@ -227,16 +241,7 @@ EXPECTED_PATH = {"f4": (29, 392709984), "genz_gaussian": (25, 10851868416), "f6"
 # bound column of PERF.md's kernel rows has counted them since the port's
 # first kernel
 GM_COUNTS = {("f4", 5): (1699741696, 150994944), ("genz_gaussian", 8): (14350811136, 226492416)}
-# distributed cases: (integrand, d, rel_tol, redistribution), four ranks,
-# capacity 2^22 per rank (each GPU holds its own store, as in the paper)
-DIST_CASES = [
-    ("f4", 5, 1e-7, "ring"),
-    (MAIN_CASES[1][0], 8, 1e-5, "ring"),  # the theta path on every rank
-    ("f6", 5, 1e-4, "ring"),
-    ("f6", 5, 1e-4, "off"),
-]
 DIST_RANKS = 4
-DIST_CAPACITY = 1 << 22
 # iterations per host read of phase 6's runs: the per-iteration read, and
 # the default fused dispatch
 DIST_SYNC_EVERY = (1, 4)
@@ -305,6 +310,17 @@ def phase_build():
         if m:
             path = {None: "", "0": ", one pass", "1": ", digit passes"}[m.group(3)]
             kernel = f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}{path}>"
+        elif kernel and "spill stores" in line:
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif kernel and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            log(f"  {kernel:<30} regs {regs:>3} spill {spill}")
+            kernel = None
+    log("  redistribute_round kernels: registers / spill bytes (stores+loads):")
+    for line in built["redistribute_round"].log.splitlines():
+        m = re.search(r"Compiling entry function '\S*redistribute_(pack|splice)I([df])", line)
+        if m:
+            kernel = f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}>"
         elif kernel and "spill stores" in line:
             spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
         elif kernel and "Used" in line and "registers" in line:
@@ -598,39 +614,43 @@ def phase_device_loop(main_rows):
             for driver, walls in turns.items():
                 walls.append(_timed(lambda: getattr(adaptive, driver)(cfg, device="cuda"))[1])
         k = cfg.sync_every
-        # every block runs k evaluate steps; the last one's tail is discarded
+        # at most every block's k evaluate steps; the loop stops enqueueing at
+        # the first landed snapshot that shows the stop, so fewer run
         steps = math.ceil((res.iterations + 1) / k) * k
         row = dict(
             case=main["case"], d=d, driver="integrate_device", sync_every=k,
             status=res.status, wall_s=wall, host_syncs=res.host_syncs,
             integrate_host_syncs=main["host_syncs"], walls_in_turns=turns,
-            iterations=res.iterations, n_evals=res.n_evals, eval_steps=steps,
-            launches=launches, max_memory_allocated=peak,
+            iterations=res.iterations, n_evals=res.n_evals, eval_steps_at_most=steps,
+            launches=launches, discarded=res.discarded, max_memory_allocated=peak,
         )
         log(json.dumps(row))
         assert res.status == "converged", row
         assert (res.integral, res.error, res.iterations, res.n_evals) == (
             main["integral"], main["error"], main["iterations"], main["n_evals"]), row
         assert res.host_syncs <= math.ceil(res.iterations / k) + 2, row
-        assert launches == steps, row
+        assert res.iterations + 1 <= launches <= steps, row
+        assert launches == res.iterations + 1 + res.discarded, row
         total += launches
     return total
 
 
 def phase_distributed(main_rows, smi):
-    """Four ranks through the CUDA GM kernel, against phase 4's runs, at
-    ``sync_every`` 1 and 4 in turns (1, 4, 1, 4): every run gives
+    """Four ranks through the CUDA GM and round kernels, against phase 4's
+    runs, at ``sync_every`` 1 and 4 in turns (1, 4, 1, 4): every run gives
     EXPECTED_DIST's counts and the same results at both; one synchronising
-    call per dispatch."""
+    call per dispatch.  Returns the GM launches and the round's."""
     from repro_torch.core import integrands
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.core.distributed import integrate_distributed
     from repro_torch.core.ranks import cuda_devices
     from repro_torch.kernels import genz_malik_eval as gm_kernel
+    from repro_torch.kernels import redistribute_round as rk
 
     single = {row["case"]: row for row in main_rows}
     devices = cuda_devices(DIST_RANKS)
     total = 0
+    rounds = {"pack": 0, "splice": 0}
     imbalance = {}
     for name, d, rel_tol, policy in DIST_CASES:
         case = name.split(":")[0]
@@ -643,9 +663,11 @@ def phase_distributed(main_rows, smi):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             gm_kernel.reset_launch_count()
+            rk.reset_launch_count()
             res, wall, sync_calls = _sync_counted(
                 lambda: integrate_distributed(cfg, devices=devices))
             launches = gm_kernel.launch_count()
+            packs, splices = rk.launch_count("pack"), rk.launch_count("splice")
             rel = abs(res.integral - exact) / abs(exact)
             mean_share = res.n_evals / DIST_RANKS
             row = dict(
@@ -657,6 +679,7 @@ def phase_distributed(main_rows, smi):
                 share_of_mean=(res.evals_per_device / mean_share).tolist(),
                 mean_imbalance=res.mean_imbalance(), regions_moved=res.moved,
                 host_syncs=res.host_syncs, sync_calls=sync_calls, launches=launches,
+                round_launches=dict(pack=packs, splice=splices),
                 discarded=res.discarded, eval_rows=res.eval_rows,
                 eval_rows_exact=res.eval_rows_exact,
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -668,10 +691,17 @@ def phase_distributed(main_rows, smi):
             assert rel <= 10 * rel_tol, row
             assert abs(res.integral - single[case]["integral"]) <= 4 * rel_tol * abs(exact), row
             assert min(res.evals_per_device) > 0.01 * mean_share, row
-            # a dispatch runs on past convergence; those iterations are discarded
+            # a dispatch stops enqueueing at the first landed snapshot that
+            # shows the stop; the iterations begun before it are discarded
             assert res.iterations * DIST_RANKS <= launches <= (
                 res.iterations + k - 1) * DIST_RANKS, row
-            assert launches == (res.iterations + res.discarded) * DIST_RANKS, row
+            assert launches <= (res.iterations + res.discarded) * DIST_RANKS, row
+            assert packs == splices, row
+            if policy == "off":
+                assert packs == 0, row
+            else:
+                assert res.iterations * DIST_RANKS <= packs <= (
+                    res.iterations + res.discarded) * DIST_RANKS, row
             assert res.eval_rows >= res.eval_rows_exact, row
             if k == 1:
                 assert res.discarded == 0 and res.eval_rows == res.eval_rows_exact, row
@@ -685,10 +715,41 @@ def phase_distributed(main_rows, smi):
             walls[k].append(wall)
             imbalance[(case, policy)] = res.mean_imbalance()
             total += launches
+            rounds["pack"] += packs
+            rounds["splice"] += splices
         log(json.dumps(dict(phase="distributed_walls", case=case, redistribution=policy,
                             walls_s={str(k): w for k, w in walls.items()}, card=smi)))
     assert imbalance[("f6", "ring")] <= imbalance[("f6", "off")] + 0.05, imbalance
-    return total
+    assert rounds["pack"] > 0, rounds
+    return total, rounds
+
+
+def phase_round_kernels(smi):
+    """Phase 3b: the redistribution round's two kernels against their plain
+    versions (kernels/ref.py, on the CPU), bit for bit, over gm_perf.py's
+    round_grid: 2, 3, 4 and 8 ranks, every shift of their schedules,
+    float64 and float32, d = 3, 5, 8, an empty rank, a rank full to the
+    round's limit and one full to the store, a message cap below and above
+    the store's 64 rows.  Then each kernel timed at phase 6's shape
+    (gm_perf.time_round: 4 ranks, cap 512, 2^22 rows a rank, d = 5 and 8)."""
+    t0 = time.perf_counter()
+    cases = moved = 0
+    worst = 0.0
+    for case in round_grid():
+        err, rows = round_vs_plain(*case)
+        worst = max(worst, err)
+        moved += rows
+        cases += 1
+    row = dict(phase="round_kernels", card=smi, cases=cases, rows_moved=moved,
+               max_abs_err=worst, wall_s=time.perf_counter() - t0)
+    log(json.dumps(row))
+    assert cases == 156 and moved > 0 and worst == 0.0, row
+    timings = []
+    for d in ROUND_TIMED["dims"]:
+        timings.append(time_round(d))
+        log("timing: " + json.dumps(dict(phase="round_kernels", card=smi, **timings[-1])))
+    torch.cuda.empty_cache()
+    return worst, timings
 
 
 def phase_gauss_kronrod():
@@ -1798,9 +1859,11 @@ def main():
     smi = phase_device()
     phase_build()
     phase_kernel_vs_plain()
+    round_err, round_timings = phase_round_kernels(smi)
     launches, main_rows = phase_main_path()
     launches += phase_device_loop(main_rows)
-    launches += phase_distributed(main_rows, smi)
+    dist_launches, round_launches = phase_distributed(main_rows, smi)
+    launches += dist_launches
     phase_gauss_kronrod()
     timings = phase_timing()
     service_launches, phase9 = phase_service()
@@ -1848,8 +1911,22 @@ def main():
                                          "library_ms", "bound_ms", "max_abs_err")}
                       for r in others],
     )
+    rounds = [
+        dict(name=f"redistribute_{part}", route="cuda",
+             source="src/repro_torch/kernels/csrc/redistribute_round.cu",
+             replaces=f"src/repro/core/redistribution.py:{line} (redistribute, {what}; "
+                      "XLA, no TPU kernel)",
+             launches=round_launches[part], max_abs_err=round_err,
+             **{k: round_timings[0][part][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms")},
+             at=f"d={round_timings[0]['d']} cap={ROUND_TIMED['cap']} "
+                f"C={ROUND_TIMED['capacity']} float64",
+             other_shapes=[dict(d=t["d"], **t[part]) for t in round_timings[1:]])
+        for part, line, what in (("pack", 163, "stats, counts and payload"),
+                                 ("splice", 201, "retire and splice"))
+    ]
     log(f"card: {smi}")
-    log(json.dumps({"kernels": [kernel, sums]}))
+    log(json.dumps({"kernels": [kernel, sums, *rounds]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -48,6 +48,9 @@ class AdaptiveResult:
     n_active: int
     overflowed: bool
     host_syncs: int = 0  # reads of device values by the host during the run
+    # evaluate steps (integrate_device) or iterations (integrate_distributed)
+    # enqueued, at least in part, after the stop, and discarded
+    discarded: int = 0
 
     def summary(self) -> str:
         return (
@@ -345,45 +348,54 @@ def _landed(event) -> bool:
     return event is None or event.query()
 
 
-class LandedCounts:
-    """Live counts copied to pinned host memory without a sync, and upper
-    bounds of the counts grown from the newest copy that has landed.
+class LandedRows:
+    """One row per iteration of a block, copied to pinned host memory
+    without a sync, and what the host can learn from the rows that have
+    landed without waiting.
 
-    A driver that runs up to ``steps`` iterations per host read sizes its
-    windows from these bounds.  ``start(exact)`` opens a dispatch with the
-    exact counts the host knows; ``record(j, counts)`` queues the copy of
-    the ``width`` counts after iteration ``j`` (with an event behind it);
-    ``bounds(j, grow)`` takes the newest copy that has landed, by querying
-    the events in order, and applies ``grow`` (one iteration's worst case)
-    once for each iteration since; after the read that ends the dispatch,
-    ``exact(j)`` is iteration ``j``'s count.
+    A driver that runs up to ``steps`` iterations per host read records a
+    row per iteration: ``start()`` opens a block, ``record(row)`` queues the
+    copy of the next row with an event behind it, ``landed()`` is the number
+    of rows that have landed, found by querying the events in order, and
+    ``rows`` the host copies (all of them after the read that ends the
+    block).  With ``stop`` (a test of a host row), ``stopped()`` tells
+    whether a landed row shows the stop, and ``stop_at`` is the first such
+    row: from there on the driver enqueues nothing more.
     """
 
-    def __init__(self, steps: int, width: int, device: torch.device):
-        self._buf = torch.empty((steps, width), dtype=torch.int64,
-                                pin_memory=device.type == "cuda")
-        self._host = self._buf.numpy()
+    def __init__(self, steps: int, width: int, device: torch.device,
+                 dtype: torch.dtype = torch.int64, stop: Optional[Callable] = None):
+        buf = torch.empty((steps, width), dtype=dtype, pin_memory=device.type == "cuda")
+        self.rows = buf.numpy()
+        self._slots = buf.unbind()
         self._device = device
+        self._stop = stop
+        self.start()
 
-    def start(self, exact: list[int]) -> None:
-        self._known_j, self._known = 0, list(exact)  # newest exact counts: at iteration known_j
-        self._pending = []  # (iteration whose counts they are, event) of copies in flight
+    def start(self) -> None:
+        self._events = []  # one per row recorded in this block
+        self._landed = 0  # rows known to have landed
+        self.stop_at: Optional[int] = None
 
-    def record(self, j: int, counts: torch.Tensor) -> None:
-        self._buf[j].copy_(counts, non_blocking=True)
-        self._pending.append((j + 1, _record(self._device)))
+    def record(self, row: torch.Tensor) -> None:
+        self._slots[len(self._events)].copy_(row, non_blocking=True)
+        self._events.append(_record(self._device))
 
-    def bounds(self, j: int, grow: Callable[[list[int]], list[int]]) -> list[int]:
-        while self._pending and _landed(self._pending[0][1]):
-            self._known_j = self._pending.pop(0)[0]
-            self._known = self._host[self._known_j - 1].tolist()
-        bounds = self._known
-        for _ in range(j - self._known_j):
-            bounds = grow(bounds)
-        return bounds
+    def landed(self) -> int:
+        while self._landed < len(self._events) and _landed(self._events[self._landed]):
+            if self._stop is not None and self.stop_at is None and self._stop(self.rows[self._landed]):
+                self.stop_at = self._landed
+            self._landed += 1
+        return self._landed
 
-    def exact(self, j: int) -> list[int]:
-        return self._host[j].tolist()
+    def stopped(self) -> bool:
+        self.landed()
+        return self.stop_at is not None
+
+
+def stops(cfg: QuadratureConfig, integral: float, error: float, n_active) -> bool:
+    """The fused loops' stop: the error within the budget, or no active region."""
+    return error <= max(cfg.abs_tol, abs(integral) * cfg.rel_tol) or not n_active
 
 
 def integrate_device(
@@ -408,12 +420,16 @@ def integrate_device(
       ahead of the device, the windows grow up to 2^(K-1) times the rows;
     - every iteration records on the device a snapshot of (integral, error,
       active count, ``n_evals``, ``it``, ``overflowed``) after its evaluate
-      step;
+      step, and copies it to pinned host memory the same way;
+    - before each evaluate and each advance the host queries the snapshots'
+      events: once a landed snapshot shows the stop (converged, or no
+      active region), it enqueues nothing more, as the JAX loop stops on
+      the device;
     - the host reads the block's snapshots with one sync and takes the
       first iteration that converged (or found no active region).  The
-      iterations after it in the same block ran on a copy of the future
-      and are discarded: the result is read from the snapshot, not from
-      the state.
+      evaluate steps enqueued after it, before its snapshot landed, are
+      discarded (``discarded``): the result is read from the snapshot, not
+      from the state, which is never read again.
 
     As in the JAX package's loop, a run cut by ``cfg.max_iters`` reports
     the estimates of the state after its last advance (its new children
@@ -431,48 +447,58 @@ def integrate_device(
     adv_ladder = advance_ladder(cfg)
     C = cfg.capacity
 
-    # the population after each advance of a block, copied without a sync
-    landed = LandedCounts(cfg.sync_every, 1, device)
+    def snapshot(state, integral, error, active):
+        return torch.stack([x.double() for x in (
+            integral, error, active.sum(), state.n_evals, state.it, state.overflowed)])
+
+    # the population after each advance of a block, and each iteration's
+    # snapshot, copied without a sync
+    counts = LandedRows(cfg.sync_every, 1, device)
+    snaps = LandedRows(cfg.sync_every, len(_SNAP), device, torch.float64,
+                       stop=lambda row: stops(cfg, row[0], row[1], row[2]))
     n = cfg.resolved_n_init()  # exact population at the start of a block
     it = 0
     syncs = 0
+    discarded = 0
     final = None
     with recorder.span("core.device_loop", max_iters=cfg.max_iters):
         while final is None:
             steps = min(cfg.sync_every, cfg.max_iters - it)
-            snaps = []
-            landed.start([n])
+            block = []
+            counts.start()
+            snaps.start()
             for j in range(steps):
-                (bound,) = landed.bounds(j, lambda b: [min(2 * b[0], C)])
+                if snaps.stopped():
+                    break
+                m = counts.landed()
+                bound = min((int(counts.rows[m - 1, 0]) if m else n) << (j - m), C)
                 state = make_eval_step(cfg, rule, window=region_store.select_window(ladder, bound))(state)
                 w = region_store.select_window(adv_ladder, advance_target(bound, C))
                 ww = None if w == C else w
                 integral, error, fin = classify_window(cfg, state, total_volume, width, ww)
-                snap = torch.stack([x.double() for x in (
-                    integral, error, state.active[:w].sum(), state.n_evals, state.it,
-                    state.overflowed)])
+                block.append(snapshot(state, integral, error, state.active[:w]))
+                snaps.record(block[-1])
+                if snaps.stopped():
+                    break
                 state = classify_split_compact(state, fin, window=ww)
                 state.it += 1  # in place, on the device
-                landed.record(j, state.active[:w].sum())
-                snaps.append(snap)
-            if it + steps == cfg.max_iters:
-                # the loop ends after this advance: its estimates are the result
-                gi, ge = state.global_estimates()
-                snaps.append(torch.stack([x.double() for x in (
-                    gi, ge, state.active.sum(), state.n_evals, state.it, state.overflowed)]))
-            rows = [dict(zip(_SNAP, r)) for r in torch.stack(snaps).tolist()]
-            syncs += 1
-            for row in rows[:steps]:
-                budget = max(cfg.abs_tol, abs(row["integral"]) * cfg.rel_tol)
-                if row["error"] <= budget or row["n_active"] == 0:
-                    final = row
-                    break
-            if final is None:
+                counts.record(state.active[:w].sum())
+            else:
                 if it + steps == cfg.max_iters:
-                    final = rows[-1]
-                else:
-                    (n,) = landed.exact(steps - 1)  # landed: the read above synced
-                    it += steps
+                    # the loop ends after this advance: its estimates are the result
+                    block.append(snapshot(state, *state.global_estimates(), state.active))
+            rows = [dict(zip(_SNAP, r)) for r in torch.stack(block).tolist()]
+            syncs += 1
+            stop = next((j for j, row in enumerate(rows[:steps])
+                         if stops(cfg, row["integral"], row["error"], row["n_active"])), None)
+            if stop is not None:
+                final = rows[stop]
+                discarded = min(len(rows), steps) - stop - 1
+            elif it + steps == cfg.max_iters:
+                final = rows[-1]
+            else:
+                n = int(counts.rows[steps - 1, 0])  # landed: the read above synced
+                it += steps
 
     integral, error = final["integral"], final["error"]
     n_active, iterations = int(final["n_active"]), int(final["it"])
@@ -490,6 +516,7 @@ def integrate_device(
         n_active=n_active,
         overflowed=overflowed,
         host_syncs=syncs,
+        discarded=discarded,
     )
 
 

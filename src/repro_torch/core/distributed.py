@@ -35,11 +35,12 @@ import torch
 from repro_torch.core import region_store
 from repro_torch.core.adaptive import (
     AdaptiveResult,
-    LandedCounts,
+    LandedRows,
     advance_ladder,
     advance_target,
     eval_ladder,
     make_eval_step,
+    stops,
 )
 from repro_torch.core.classify import classify
 from repro_torch.core.config import QuadratureConfig
@@ -63,11 +64,9 @@ class DistributedResult(AdaptiveResult):
     )
     # regions moved by redistribution, summed over all rounds
     moved: int = 0
-    # iterations run past the stop inside the last dispatch, and discarded
-    discarded: int = 0
     # rows the evaluate steps covered, summed over ranks and every iteration
-    # run (discarded ones too), and the rows they would have covered had
-    # every window been sized from the exact count (the K = 1 windows)
+    # run in full (discarded ones too), and the rows they would have covered
+    # had every window been sized from the exact count (the K = 1 windows)
     eval_rows: int = 0
     eval_rows_exact: int = 0
 
@@ -141,18 +140,23 @@ def grow_bounds(bounds: list[int], cfg: QuadratureConfig) -> list[int]:
 
 # Per-rank fields of one iteration's snapshot: the live count before the
 # split, the fresh regions it evaluated, the regions it sent, its overflow
-# flag (after the advance) and its evaluation count.
-_PER_RANK = ("n_rows", "work", "sent", "overflowed", "n_evals")
+# flag (after the advance), its live count after the round and its
+# evaluation count.
+_PER_RANK = ("n_rows", "work", "sent", "overflowed", "after", "n_evals")
 
 
-def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_volume, widths):
+def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_volume, widths,
+             stopped):
     """One iteration on every rank, enqueued with no host read.
 
     ``counts`` are the per-rank live counts (int64 on each rank's device)
     and ``bounds`` host upper bounds of them, from which the windows are
     sized.  Returns the states, the counts after the round and the
     iteration's snapshot (float64, on the first rank's device): integral
-    and error, then :data:`_PER_RANK` rank by rank.
+    and error, then :data:`_PER_RANK` rank by rank.  ``stopped()`` is asked
+    before every rank's evaluate but the first, before the advance and
+    before the round; once it holds, the iteration is abandoned and
+    ``None`` returned, with nothing more enqueued.
     """
     C = cfg.capacity
     ladder, adv_ladder = eval_ladder(cfg), advance_ladder(cfg)
@@ -160,6 +164,8 @@ def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_vo
     # --- evaluate (window from the rank's bound) ---------------------------
     works, ests, errs = [], [], []
     for r, st in enumerate(states):
+        if r and stopped():
+            return None
         w = region_store.select_window(ladder, bounds[r])
         works.append(torch.sum(st.active[:w] & st.fresh[:w]))
         st = states[r] = make_eval_step(cfg, rule, window=w)(st)
@@ -175,6 +181,8 @@ def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_vo
     n_global_t = ranks.psum(counts)
 
     # --- classify (global equal-share threshold) and split ------------------
+    if stopped():
+        return None
     post = []
     for r, st in enumerate(states):
         w = region_store.select_window(adv_ladder, advance_target(bounds[r], C))
@@ -195,6 +203,8 @@ def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_vo
         post.append(torch.sum(st.active[:w]))
 
     # --- the decentralised redistribution ------------------------------------
+    if stopped():
+        return None
     if cfg.redistribution != "off":
         states, after, sent = redistribute(
             states, ranks, schedule=schedule, cap=cfg.message_cap,
@@ -205,15 +215,13 @@ def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_vo
     for st in states:
         st.it += 1  # in place, on the device
 
-    ints = ranks.gather([
-        torch.stack([n, w, k, st.overflowed.long()])
-        for n, w, k, st in zip(counts, works, sent, states)
+    # one float64 row a rank (stack promotes the counts and the flag; every
+    # count is exact below 2^53)
+    per_rank = ranks.gather([
+        torch.stack([n, w, k, st.overflowed, a, st.n_evals.double()])
+        for n, w, k, st, a in zip(counts, works, sent, states, after)
     ])
-    evals = ranks.gather([st.n_evals.double() for st in states])
-    snap = torch.cat([
-        torch.stack([integral_t.double(), error_t.double()]),
-        torch.cat([ints.double(), evals[:, None]], 1).flatten(),
-    ])
+    snap = torch.cat([torch.stack([integral_t, error_t]).double(), per_rank.flatten()])
     return states, after, snap
 
 
@@ -243,7 +251,7 @@ def integrate_distributed(
 
     - each rank's windows are sized from an upper bound of its population:
       the newest exact count whose copy to pinned host memory has landed
-      (:class:`repro_torch.core.adaptive.LandedCounts`, as
+      (:class:`repro_torch.core.adaptive.LandedRows`, as
       :func:`repro_torch.core.adaptive.integrate_device` does), grown for
       each iteration since: ×2 for the split, capped at the capacity, then
       for a receive up to the fair share of the grown total, by at most
@@ -253,16 +261,21 @@ def integrate_distributed(
       rows past the exact counts' windows are in ``eval_rows`` against
       ``eval_rows_exact``;
     - the redistribution round keeps its counts on the devices;
-    - each iteration stacks a snapshot on the first rank's device: the
-      summed integral and error, and per rank the live count before the
-      split, the fresh regions evaluated, the regions sent, ``overflowed``
-      and ``n_evals`` after the advance;
+    - each iteration stacks a snapshot on the first rank's device and
+      copies it to pinned host memory without a sync: the summed integral
+      and error, and per rank the live count before the split, the fresh
+      regions evaluated, the regions sent, ``overflowed``, the live count
+      after the round and ``n_evals`` after the advance;
+    - before each rank's evaluate, before the advance and before the round
+      the host queries the snapshots' events: once a landed snapshot shows
+      the stop (converged, or no active region) it enqueues nothing more,
+      and the iteration under way is abandoned, as the reference's
+      ``lax.cond`` skips every iteration after its on-device ``stop``;
     - the host reads the dispatch's snapshots once, sums the per-rank
       integers, and takes the first iteration that converged (or found no
-      active region), as the reference's on-device ``stop`` does.  The
-      iterations after it in the same dispatch ran in full and are
-      discarded (``discarded``): the result comes from the snapshot, not
-      from the states.
+      active region).  The iterations enqueued, in full or in part, after
+      it and before its snapshot landed are discarded (``discarded``): the
+      result comes from the snapshot, and the states are never read again.
 
     ``host_syncs`` is the number of dispatches.  ``recorder``
     (:mod:`repro_torch.telemetry`) gets the JAX package's events: a
@@ -287,7 +300,18 @@ def integrate_distributed(
     widths = [to_device(hi - lo, torch.float64, dev) for dev in ranks.devices]
     counts = [to_device(k, torch.int64, dev) for k, dev in zip(n_host, ranks.devices)]
     ladder = eval_ladder(cfg)
-    landed = LandedCounts(cfg.sync_every, n, ranks.first)
+
+    def unpack(vals):  # a snapshot row as a dict, the per-rank fields as arrays
+        per = np.asarray(vals[2:]).reshape(n, len(_PER_RANK))
+        return dict(integral=vals[0], error=vals[1],
+                    **{k: per[:, i] for i, k in enumerate(_PER_RANK)})
+
+    def landed_stop(vals):
+        row = unpack(vals)
+        return stops(cfg, row["integral"], row["error"], row["n_rows"].sum())
+
+    landed = LandedRows(cfg.sync_every, 2 + n * len(_PER_RANK), ranks.first, torch.float64,
+                        stop=landed_stop)
     history = []
     moved = discarded = eval_rows = eval_rows_exact = 0
     row = None
@@ -298,31 +322,37 @@ def integrate_distributed(
         steps = min(cfg.sync_every, cfg.max_iters - it)
         with recorder.span("dist.dispatch", it=it) as sp:
             snaps, windows = [], []
-            landed.start(n_host)
+            landed.start()
             for j in range(steps):
-                bounds = landed.bounds(j, lambda b: grow_bounds(b, cfg))
-                windows.append([region_store.select_window(ladder, b) for b in bounds])
-                states, counts, snap = _iterate(
+                if landed.stopped():
+                    break
+                m = landed.landed()
+                bounds = [int(b) for b in unpack(landed.rows[m - 1])["after"]] if m else n_host
+                for _ in range(j - m):
+                    bounds = grow_bounds(bounds, cfg)
+                done = _iterate(
                     cfg, rule, ranks, states, counts, bounds, it + j, schedule=schedule,
-                    total_volume=total_volume, widths=widths,
+                    total_volume=total_volume, widths=widths, stopped=landed.stopped,
                 )
+                if done is None:  # abandoned at the landed stop
+                    discarded += 1
+                    break
+                states, counts, snap = done
+                windows.append([region_store.select_window(ladder, b) for b in bounds])
                 snaps.append(snap)
-                landed.record(j, ranks.gather(counts))
+                landed.record(snap)
             rows = torch.stack(snaps).tolist()
             syncs += 1
             kept = []
             for vals, wins in zip(rows, windows):
-                per = np.asarray(vals[2:]).reshape(n, len(_PER_RANK))
-                row = dict(integral=vals[0], error=vals[1],
-                           **{k: per[:, i] for i, k in enumerate(_PER_RANK)})
+                row = unpack(vals)
                 eval_rows += sum(wins)
                 eval_rows_exact += sum(
                     region_store.select_window(ladder, int(x)) for x in row["n_rows"])
                 if not stop:
                     kept.append(row)
-                    budget = max(cfg.abs_tol, abs(row["integral"]) * cfg.rel_tol)
-                    stop = row["error"] <= budget or not row["n_rows"].any()
-            discarded += steps - len(kept)
+                    stop = stops(cfg, row["integral"], row["error"], row["n_rows"].sum())
+            discarded += len(rows) - len(kept)
             sp["executed"] = len(kept)
         for row in kept:
             n_rows = [int(x) for x in row["n_rows"]]
@@ -341,7 +371,7 @@ def integrate_distributed(
             history.append((it, row["integral"], row["error"], row["n_active"], work_imb, max_rows))
             moved += int(row["sent"].sum())
             it += 1
-        n_host = landed.exact(steps - 1)  # landed: the read above synced
+        n_host = [int(x) for x in row["after"]]
 
     integral, error = (row["integral"], row["error"]) if row else (0.0, 0.0)
     n_active = row["n_active"] if row else 0

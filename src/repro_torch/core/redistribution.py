@@ -11,11 +11,13 @@ the counter before the driver bumps it.
 Transfer protocol of one round (:func:`redistribute`), on the per-rank
 states of :mod:`repro_torch.core.ranks`, with every count on the device:
 
-  phase 1 (stats):   each rank's ``[n_rows, free, surplus, deficit]`` (int64,
-                     on its device) goes to its upstream and its downstream
-                     partner through ``Ranks.ppermute``, so donors see their
-                     receiver's room and receivers know what is coming; the
-                     fair share comes from ``Ranks.psum`` of the counts.
+  phase 1 (stats):   every rank's live count is gathered (``Ranks.gather``)
+                     and copied to each other rank's device; from them each
+                     rank computes the fair share and the
+                     ``[n_rows, free, surplus, deficit]`` of itself, of its
+                     receiver and of its donor, so donors see their
+                     receiver's room and receivers know what is coming (the
+                     JAX package's psum and two ppermutes of the stats).
   phase 2 (payload): the donor's tail window ``[n_rows - n_send, n_rows)``
                      (centres ++ half-widths only: the paper transfers
                      "subregion coordinates rather than full data
@@ -23,6 +25,10 @@ states of :mod:`repro_torch.core.ranks`, with every count on the device:
                      ``(cap, 2d)`` block, zeroed past ``n_send``; the
                      receiver splices it in after its own rows and marks it
                      fresh, so it is evaluated again there.
+
+Each rank's part is two steps, pack (plan and payload) and splice: on the
+card two CUDA kernels (``kernels/csrc/redistribute_round.cu``), on the CPU
+their plain versions (``kernels/ref.py``), with the same bits.
 
 The round reads nothing back, so the distributed driver can run several
 iterations per host read.  :func:`round_counts` is the same arithmetic on
@@ -43,6 +49,8 @@ import torch
 
 from repro_torch.core.ranks import Ranks
 from repro_torch.core.region_store import RegionState
+from repro_torch.kernels import redistribute_round as round_kernels
+from repro_torch.kernels.ref import round_pack_ref, round_splice_ref
 
 
 def make_schedule(n_devices: int, max_len: int = 8) -> tuple[int, ...]:
@@ -163,76 +171,41 @@ def redistribute(
     Nothing is read back: every count and size stays on the device.
     Returns the states, each rank's live count after the round and the
     regions each rank sent, as int64 tensors on the ranks' devices.
+
+    The counts are gathered once and copied to each other rank's device;
+    then every rank packs (its plan and payload), the payloads move one
+    ring step along ``up``, and every rank splices.  On CUDA states pack
+    and splice are the kernels of :mod:`repro_torch.kernels.redistribute_round`
+    (two launches a rank); on CPU states, their plain versions.
     """
     n_rows = list(n_rows)
     n = ranks.n
     if n <= 1 or not schedule:
         return states, n_rows, [torch.zeros_like(r) for r in n_rows]
     shift = round_shift(schedule, it)
-    down, up = ring_perms(n, shift)
+    _, up = ring_perms(n, shift)
+    if states[0].centers.device.type == "cuda":
+        pack, splice = round_kernels.round_pack, round_kernels.round_splice
+    else:
+        pack, splice = round_pack_ref, round_splice_ref
 
-    # --- phase 1: stats both ways -------------------------------------------
-    total = ranks.psum(n_rows)
-    fair = torch.stack([total // n, -(-total // n)])  # [fair_lo, fair_hi]
-    stats = []
-    for rows, dev in zip(n_rows, ranks.devices):
-        fair_lo, fair_hi = fair.to(dev, non_blocking=True).unbind()
-        # [n_rows, free, surplus, deficit]; n_rows >= 0 already
-        stats.append(torch.stack([rows, limit - rows, rows - fair_hi, fair_lo - rows]).clamp(min=0))
-    down_stats = ranks.ppermute(stats, down)
-    up_stats = ranks.ppermute(stats, up)
-
-    # --- phase 2: payload (coordinates only), donor i -> i + shift ----------
-    # Every rank sends the same number of rows (cap, or C if smaller: no
-    # more can be live), zeroed past its n_send, so no shape depends on the
-    # counts.  The rows are read at (n_rows - n_send + j) mod C: the sent
-    # ones are where the reference's clamped positions are, and the same
-    # read gives the receiver's splice its old rows.
-    aranges: dict = {}
+    counts = {ranks.first: ranks.gather(n_rows)}
     plans, payload = [], []
-    for st, rows, own, ds, us in zip(states, n_rows, stats, down_stats, up_stats):
-        C = st.capacity
-        # n_send = min(cap, surplus, down_free, down_deficit),
-        # n_recv = min(cap, up_surplus, free, deficit)
-        room = torch.stack([ds, own])[:, 1::2].amin(1)
-        offer = torch.stack([own, us])[:, 2]
-        n_send, n_recv = torch.minimum(offer, room).clamp(max=cap).unbind()
+    for r, st in enumerate(states):
         dev = st.centers.device
-        if dev not in aranges:
-            aranges[dev] = torch.arange(min(cap, C), device=dev)
-        j = aranges[dev]
-        base = rows - n_send
-        dest = (base + j) % C
-        coords = torch.cat([st.centers.index_select(0, dest), st.halfw.index_select(0, dest)], 1)
-        sent = j < n_send
-        payload.append(torch.where(sent[:, None], coords, 0.0))
-        plans.append((j, base, dest, coords, sent, n_send, n_recv))
+        if dev not in counts:
+            counts[dev] = counts[ranks.first].to(dev, non_blocking=True)
+        plan, block = pack(counts[dev], r, shift, cap, limit, st.centers, st.halfw)
+        plans.append(plan)
+        payload.append(block)
     incoming = ranks.ppermute(payload, up)
 
-    # --- retire the sent window, splice the received one ---------------------
-    # Both are rows base + j (a rank sends or receives, never both), written
-    # at (base + j) mod C: distinct positions, so the write is deterministic.
-    # A row neither sent nor received gets its old value back, and a
-    # received row past the store is dropped.
     after, moved = [], []
-    for st, (j, base, dest, coords, sent, n_send, n_recv), got in zip(
-        states, plans, incoming
-    ):
-        C, d = st.capacity, st.d
-        kept = torch.minimum(n_recv, C - base)
-        recv = j < kept
-        new = torch.where(recv[:, None], got, coords)
-        st.centers.index_copy_(0, dest, new[:, :d])
-        st.halfw.index_copy_(0, dest, new[:, d:])
-        for field in ("est", "err", "axis"):
-            t = getattr(st, field)
-            t.index_copy_(0, dest, t.index_select(0, dest).masked_fill(recv, 0))
-        keep = ~sent
-        for field in ("active", "fresh"):
-            t = getattr(st, field)
-            t.index_copy_(0, dest, t.index_select(0, dest) & keep | recv)
-        after.append(base + kept)
-        moved.append(n_send)
+    for st, plan, got in zip(states, plans, incoming):
+        a, k = splice(plan, got, st.centers, st.halfw, st.est, st.err, st.axis, st.active,
+                      st.fresh)
+        after.append(a)
+        moved.append(k)
     return states, after, moved
 
 

@@ -212,3 +212,69 @@ def genz_malik_eval_soa_tables_ref(
     i5 = scale * (w.e1 * f0 + w.e2 * sum2 + w.e3 * sum3 + w.e4 * sum4)
     i3 = scale * (w.t1 * f0 + w.t3 * sum3)
     return i7, i5, i3, torch.stack(diffs, dim=0)
+
+
+# --- the redistribution round (csrc/redistribute_round.cu) ---------------------
+
+
+def round_pack_ref(counts, rank: int, shift: int, cap: int, limit: int, centers, halfw):
+    """The pack kernel's plain version: rank ``rank``'s ``(plan, payload)``
+    in a round at ring distance ``shift``, from every rank's live count
+    ``counts`` (n,) int64 and the rank's ``centers`` and ``halfw`` (C, d).
+
+    The fair share is ``[total // n, ceil(total / n)]`` and each rank's
+    stats ``[n_rows, free, surplus, deficit]``; the rank sends to its
+    receiver ``rank + shift`` and receives from its donor ``rank - shift``
+    (``redistribution.round_counts`` on host integers).  ``plan`` is
+    ``(n_send, n_recv, base, base)``; its last entry is the splice's.  The
+    payload's ``min(cap, C)`` rows are read at ``(base + j) mod C``, where the
+    reference's clamped positions are, and zeroed past ``n_send``.
+    """
+    n = counts.shape[0]
+    C = centers.shape[0]
+    total = counts.sum()
+    fair_lo, fair_hi = total // n, -(-total // n)
+
+    def stats(rows):  # [n_rows, free, surplus, deficit]; n_rows >= 0 already
+        return torch.stack([rows, limit - rows, rows - fair_hi, fair_lo - rows]).clamp(min=0)
+
+    own, down, up = (stats(counts[(rank + s) % n]) for s in (0, shift, -shift))
+    # n_send = min(cap, surplus, down_free, down_deficit),
+    # n_recv = min(cap, up_surplus, free, deficit)
+    room = torch.stack([down, own])[:, 1::2].amin(1)
+    offer = torch.stack([own, up])[:, 2]
+    n_send, n_recv = torch.minimum(offer, room).clamp(max=cap).unbind()
+    base = counts[rank] - n_send
+    j = torch.arange(min(cap, C), device=centers.device)
+    src = (base + j) % C
+    coords = torch.cat([centers.index_select(0, src), halfw.index_select(0, src)], 1)
+    payload = torch.where((j < n_send)[:, None], coords, 0.0)
+    return torch.stack([n_send, n_recv, base, base]), payload
+
+
+def round_splice_ref(plan, incoming, centers, halfw, est, err, axis, active, fresh):
+    """The splice kernel's plain version: the received block ``incoming``
+    spliced in after the rank's rows, in place, and the sent window retired.
+
+    Both are rows ``base + j`` (a rank sends or receives, never both),
+    written at ``(base + j) mod C``: distinct positions, so the write is
+    deterministic.  A row neither sent nor received gets its old value back,
+    and a received row past the store is dropped.  Returns the rank's count
+    after the round and the rows it sent.
+    """
+    C, d = centers.shape
+    n_send, n_recv, base = plan[0], plan[1], plan[2]
+    j = torch.arange(incoming.shape[0], device=centers.device)
+    dest = (base + j) % C
+    kept = torch.minimum(n_recv, C - base)
+    recv = j < kept
+    coords = torch.cat([centers.index_select(0, dest), halfw.index_select(0, dest)], 1)
+    new = torch.where(recv[:, None], incoming, coords)
+    centers.index_copy_(0, dest, new[:, :d])
+    halfw.index_copy_(0, dest, new[:, d:])
+    for t in (est, err, axis):
+        t.index_copy_(0, dest, t.index_select(0, dest).masked_fill(recv, 0))
+    keep = ~(j < n_send)
+    for t in (active, fresh):
+        t.index_copy_(0, dest, t.index_select(0, dest) & keep | recv)
+    return base + kept, n_send

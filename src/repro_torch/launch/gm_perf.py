@@ -5,7 +5,9 @@
     python src/repro_torch/launch/gm_perf.py ptxas [--sass Li5E2F4]
     python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed,service,vegas]
         [--sync-every K] [--repeat N]
-    python src/repro_torch/launch/gm_perf.py ops [--sync-every K]
+    python src/repro_torch/launch/gm_perf.py ops [--sync-every K] [--device cuda]
+    python src/repro_torch/launch/gm_perf.py interleave --trees DIR,DIR,. [--rounds 3]
+        [--repeat 5] [--out build/interleave.jsonl] [--walls-only]
     python src/repro_torch/launch/gm_perf.py sums [--kernel-only]
     python src/repro_torch/launch/gm_perf.py sums-ablate
     python src/repro_torch/launch/gm_perf.py vegas
@@ -29,23 +31,28 @@ NAME (e.g. ``Li5E2F4``).
 profiled run's wall time into the GM kernel, the other device work (the
 advance: sort, gathers, tree sums, classify) and the time the device sat
 idle (host gaps).  ``--sync-every K`` sets the device and distributed
-drivers' iterations per dispatch; a distributed row also gives the
-iterations discarded past the stop, the rows evaluated against those of
-exact windows and the discarded iterations' device seconds
-(:func:`_dispatch_split`).  ``--drivers`` picks the drivers, each on every case:
+drivers' iterations per dispatch; a device or distributed row also gives
+the evaluate steps or iterations begun past the stop and discarded, and
+their device seconds (:func:`_discarded_split`), a distributed row the
+rows evaluated against those of exact windows (:func:`_dispatch_split`).  ``--drivers`` picks the drivers, each on every case:
 ``integrate`` (the default), ``device`` (``integrate_device``) and
 ``distributed`` (``integrate_distributed`` on four ranks over the visible
-GPUs, capacity per rank as the case's), ``service`` (the batch service's
+GPUs, on :data:`DIST_CASES`, phase 6's), ``service`` (the batch service's
 one-rank fleet of ``chip_smoke.py`` phase 9, :data:`SERVICE`, in place of
 the three cases) and ``vegas`` (``integrate_vegas`` on the first of
 :data:`VEGAS_CASES`, with its device time split by stage: sample + map,
 integrand, reductions, refine, from the engine's named ranges).
 
-``ops`` counts, on the CPU, the torch operations that
-``integrate_distributed`` enqueues per rank and iteration run, by phase
-(:func:`cmd_ops`): the host's enqueue is what holds the four-rank walls.
-It uses only names the distributed driver has had since its port, so it
-counts another checkout put first on ``PYTHONPATH``.
+``ops`` counts the torch operations that ``integrate_distributed``
+enqueues per rank and iteration run, by phase (:func:`cmd_ops`): the
+host's enqueue is what holds the four-rank walls.  On the CPU the round
+is its plain version; ``--device cuda`` counts the card path, the round's
+kernel launches (from their counter) included.  It uses only names the
+distributed driver has had since its port, so it counts another checkout
+put first on ``PYTHONPATH``.  ``interleave`` runs ``profile`` of several
+checkouts in turns on one card (:func:`cmd_interleave`): unpack each
+earlier tree's ``src`` under the gitignored ``build/`` first, e.g.
+``git archive a2d6aa4 src | tar -x -C build/trees/a2d6aa4``.
 
 ``sums`` times the VEGAS sums kernel (``kernels.vegas_sums.vegas_sums``) at
 the three shapes of :data:`SUMS_TIMED`: CUDA events per call, its chunk
@@ -105,6 +112,16 @@ MAIN_CASES = [
     ("genz_gaussian:" + ",".join(["5"] * 8) + ":" + ",".join(["0.5"] * 8), 8, 1e-5, 1 << 22),
     ("f6", 5, 1e-4, 1 << 22),
 ]
+# chip_smoke.py phase 6's cases, the distributed driver's in ``profile``:
+# (integrand, d, rel_tol, redistribution), four ranks, capacity 2^22 per
+# rank (each GPU holds its own store, as in the paper)
+DIST_CASES = [
+    ("f4", 5, 1e-7, "ring"),
+    (MAIN_CASES[1][0], 8, 1e-5, "ring"),  # the theta path on every rank
+    ("f6", 5, 1e-4, "ring"),
+    ("f6", 5, 1e-4, "off"),
+]
+DIST_CAPACITY = 1 << 22
 TIMED = [("f4", 5), ("genz_gaussian", 8)]
 # The batch service's fleet (chip_smoke.py phase 9): a parameter sweep of
 # 192 Gaussians at d = 5 through 64 slots of 2^19 regions, tolerances
@@ -327,10 +344,15 @@ def time_sums(w, y, cum, nb, shards, reps=20, kernel_only=False):
             run()
         torch.cuda.synchronize()
     split = {"chunk": 0.0, "combine": 0.0}
+    seen = {"chunk": 0, "combine": 0}
     for evt in prof.key_averages():
         for part in split:
             if part in evt.key:
                 split[part] += evt.self_device_time_total / 1e3 / reps
+                seen[part] += evt.count
+    # late in a long process the profiler has been seen to record none of
+    # the launches: that is "not measured", not 0 ms
+    split = {part: ms if seen[part] else None for part, ms in split.items()}
     if kernel_only:
         return dict(ms=ms, chunk_ms=split["chunk"], combine_ms=split["combine"])
     plain_ms = time_ms(lambda: vs.vegas_sums_ref(w, y, cum, nb, 0, ns), 3)
@@ -363,6 +385,190 @@ def time_sums(w, y, cum, nb, shards, reps=20, kernel_only=False):
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=bytes_moved,
                 ops=ops)
+
+
+# The redistribution round's kernels against their plain versions
+# (chip_smoke.py phase 6a, tests/test_torch_gpu.py): every shift of
+# make_schedule(n) at these rank counts, both float types, these d, in
+# stores of ROUND_C rows, at a message cap below ROUND_C and one above.
+ROUND_RANKS = (2, 3, 4, 8)
+ROUND_DIMS = (3, 5, 8)
+ROUND_C = 64
+ROUND_CAPS = (8, 100)
+# timed at phase 6's shape: four ranks, message cap 512, 2^22 rows a rank
+ROUND_TIMED = dict(ranks=4, cap=512, capacity=1 << 22, dims=(5, 8))
+# a store's per-row fields, in round_splice's order after plan and incoming
+ROUND_FIELDS = ("centers", "halfw", "est", "err", "axis", "active", "fresh")
+
+
+def round_stores(counts, C, d, dtype, seed):
+    """One store per rank (:data:`ROUND_FIELDS`, CPU tensors of ``C`` rows)
+    with ``counts[r]`` live rows on rank r: seeded values, a -0.0 and a NaN
+    among the coordinates, half the live rows fresh."""
+    rng = np.random.default_rng(seed)
+    stores = []
+    for k in counts:
+        live = np.arange(C) < k
+        centers = rng.uniform(0.1, 0.9, (C, d))
+        halfw = rng.uniform(0.01, 0.1, (C, d))
+        centers[rng.integers(0, C), rng.integers(0, d)] = -0.0
+        halfw[rng.integers(0, C), rng.integers(0, d)] = np.nan
+        arrays = dict(
+            centers=centers, halfw=halfw,
+            est=np.where(live, rng.normal(size=C), 0.0),
+            err=np.where(live, rng.uniform(1e-6, 1.0, C), 0.0),
+            axis=rng.integers(0, d, C).astype(np.int32), active=live,
+            fresh=live & (rng.uniform(size=C) < 0.5),
+        )
+        stores.append({k: torch.from_numpy(v).to(dtype) if v.dtype == np.float64
+                       else torch.from_numpy(v) for k, v in arrays.items()})
+    return stores
+
+
+def round_grid():
+    """The check grid: ``(n, shift, dtype, d, cap, counts, seed)`` with, in
+    every case, an empty rank, a rank full to the round's limit and (from
+    three ranks) one full to the store, the rest at random below the limit."""
+    from repro_torch.core.redistribution import make_schedule
+
+    limit = 3 * ROUND_C // 4
+    for n in ROUND_RANKS:
+        for i, shift in enumerate(make_schedule(n)):
+            for dtype in (torch.float64, torch.float32):
+                for d in ROUND_DIMS:
+                    for cap in ROUND_CAPS:
+                        seed = ((n * 8 + i) * 2 + (dtype == torch.float32)) * 100 + d * 7 + cap
+                        rng = np.random.default_rng(seed)
+                        counts = rng.integers(0, limit + 1, n)
+                        counts[seed % n] = 0
+                        counts[(seed + 1) % n] = limit
+                        if n > 2:
+                            counts[(seed + 2) % n] = ROUND_C
+                        yield n, shift, dtype, d, cap, counts.tolist(), seed
+
+
+def round_vs_plain(n, shift, dtype, d, cap, counts, seed, C=ROUND_C, device="cuda"):
+    """One round of ``n`` ranks through the two kernels on ``device`` and
+    through their plain versions on the CPU, from the same stores: each
+    rank's plan and payload after pack, and its store, count and rows sent
+    after splice, bit for bit.  Returns the largest absolute difference of
+    the payloads and stores (NaN against NaN counts 0) and the rows moved."""
+    from repro_torch.core.redistribution import ring_perms
+    from repro_torch.kernels import redistribute_round as rk
+    from repro_torch.kernels.ref import round_pack_ref, round_splice_ref
+
+    limit = 3 * C // 4
+    plain = round_stores(counts, C, d, dtype, seed)
+    card = [{k: v.to(device) for k, v in st.items()} for st in plain]
+    counts_cpu = torch.tensor(counts, dtype=torch.int64)
+    counts_card = counts_cpu.to(device)
+    worst = [0.0]
+
+    def same(got, want, what):
+        got = got.cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape, (what, got.shape, want.shape)
+        ok = bits_equal(got, want) if got.is_floating_point() else torch.equal(got, want)
+        assert ok, (what, n, shift, dtype, d, cap, counts)
+        if got.is_floating_point():
+            both = torch.isnan(got) & torch.isnan(want)
+            diff = torch.where(both, 0.0, got.double() - want.double()).abs()
+            worst[0] = max(worst[0], float(diff.max()) if diff.numel() else 0.0)
+
+    packed = []
+    for r in range(n):
+        plan_k, pay_k = rk.round_pack(counts_card, r, shift, cap, limit, card[r]["centers"],
+                                      card[r]["halfw"])
+        plan_p, pay_p = round_pack_ref(counts_cpu, r, shift, cap, limit, plain[r]["centers"],
+                                       plain[r]["halfw"])
+        same(plan_k[:3], plan_p[:3], f"rank {r} plan")
+        same(pay_k, pay_p, f"rank {r} payload")
+        packed.append((plan_k, pay_k, plan_p, pay_p))
+    _, up = ring_perms(n, shift)
+    moved = 0
+    for src, dst in up:
+        plan_k, _, plan_p, _ = packed[dst]
+        after_k, sent_k = rk.round_splice(plan_k, packed[src][1],
+                                          *(card[dst][f] for f in ROUND_FIELDS))
+        after_p, sent_p = round_splice_ref(plan_p, packed[src][3],
+                                           *(plain[dst][f] for f in ROUND_FIELDS))
+        same(torch.stack([after_k, sent_k]), torch.stack([after_p, sent_p]), f"rank {dst} counts")
+        for f in ROUND_FIELDS:
+            same(card[dst][f], plain[dst][f], f"rank {dst} {f}")
+        moved += int(sent_p)
+    return worst[0], moved
+
+
+def time_round(d, dtype=torch.float64, reps=200):
+    """The round's two kernels at phase 6's shape (:data:`ROUND_TIMED`), rank
+    0 of four sending a full message to rank 1 (shift 1): pack on rank 0,
+    splice on rank 1, each first checked bit for bit against its plain
+    version on the card (on copies of the stores), then timed: ms per call
+    (CUDA events over ``reps`` calls, as the main path calls it: the
+    wrapper's allocations and launch), the kernel's own device time
+    (torch.profiler), the plain version's ms per call on the card, and the
+    byte bound: the rows and flags this round moves, read once and written
+    once, at the HBM rate (the kernels do no floating-point work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import redistribute_round as rk
+    from repro_torch.kernels.ref import round_pack_ref, round_splice_ref
+
+    n, cap, C = ROUND_TIMED["ranks"], ROUND_TIMED["cap"], ROUND_TIMED["capacity"]
+    limit = 3 * C // 4
+    counts = torch.tensor([C // 2, C // 8, C // 4, C // 4], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    stores = []
+    for k in counts.tolist()[:2]:
+        live = torch.arange(C, device="cuda") < k
+        stores.append(dict(
+            centers=torch.rand((C, d), generator=gen, dtype=dtype, device="cuda"),
+            halfw=torch.rand((C, d), generator=gen, dtype=dtype, device="cuda") * 0.1,
+            est=torch.rand(C, generator=gen, dtype=dtype, device="cuda") * live,
+            err=torch.rand(C, generator=gen, dtype=dtype, device="cuda") * live,
+            axis=torch.randint(0, d, (C,), generator=gen, device="cuda", dtype=torch.int32),
+            active=live, fresh=live & (torch.rand(C, generator=gen, device="cuda") < 0.5)))
+    donor, receiver = stores
+    pack = lambda: rk.round_pack(counts, 0, 1, cap, limit, donor["centers"], donor["halfw"])  # noqa: E731
+    plain_pack = lambda: round_pack_ref(counts, 0, 1, cap, limit, donor["centers"], donor["halfw"])  # noqa: E731
+    (plan0, payload), (plan0_p, payload_p) = pack(), plain_pack()
+    assert torch.equal(plan0[:3], plan0_p[:3]) and bits_equal(payload, payload_p)
+    plan1, _ = rk.round_pack(counts, 1, 1, cap, limit, receiver["centers"], receiver["halfw"])
+    plan1_p, _ = round_pack_ref(counts, 1, 1, cap, limit, receiver["centers"],
+                                receiver["halfw"])
+    n_send, n_recv, base = plan0[0].item(), plan1[1].item(), plan1[2].item()
+    assert n_send == n_recv == cap, (n_send, n_recv)
+    copy = {k: v.clone() for k, v in receiver.items()}
+    splice = lambda: rk.round_splice(plan1, payload, *(receiver[f] for f in ROUND_FIELDS))  # noqa: E731
+    plain_splice = lambda: round_splice_ref(plan1_p, payload_p, *(copy[f] for f in ROUND_FIELDS))  # noqa: E731
+    got, want = splice(), plain_splice()
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    assert all((bits_equal if receiver[f].is_floating_point() else torch.equal)(receiver[f], copy[f])
+               for f in ROUND_FIELDS)
+    # a second splice writes the same values: time the plain version on the
+    # receiver's store itself
+    plain_splice = lambda: round_splice_ref(plan1_p, payload_p, *(receiver[f] for f in ROUND_FIELDS))  # noqa: E731
+    del copy
+    size = payload.element_size()
+    kept = min(n_recv, C - base)
+    moves = {  # bytes read once and written once
+        "pack": 8 * n + n_send * 2 * d * size + cap * 2 * d * size + 3 * 8,
+        "splice": 3 * 8 + kept * 2 * d * size + 2 * cap + kept * (2 * d * size + 2 * size + 4)
+                  + 2 * cap + 8,
+    }
+    out = {}
+    for name, fn, plain in (("pack", pack, plain_pack), ("splice", splice, plain_splice)):
+        ms = time_ms(fn, reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernel_ms = sum(evt.self_device_time_total for evt in prof.key_averages()
+                        if f"redistribute_{name}" in evt.key) / 1e3 / reps
+        out[name] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=time_ms(plain, reps // 4),
+                         bytes=moves[name], bound_ms=moves[name] / PEAK_HBM_BYTES * 1e3,
+                         bound_by="bytes", library_ms=None)
+    return dict(d=d, dtype=str(dtype).split(".")[-1], ranks=n, cap=cap, capacity=C,
+                rows_moved=n_send, **out)
 
 
 def pool_thetas():
@@ -473,33 +679,47 @@ def cmd_profile(args):
     drivers["service"] = lambda cfg: Fleet(cuda_devices(1))
     drivers["vegas"] = lambda cfg: integrate_vegas(cfg, device="cuda")
     vegas_cfg = vegas_case(*VEGAS_CASES[0])[0]
+    # (integrand, d, rel_tol, capacity, redistribution or None)
     own_case = {
-        "service": [("service:" + SERVICE["integrand"], SERVICE["d"], None, SERVICE["capacity"])],
-        "vegas": [(VEGAS_CASES[0][0], VEGAS_CASES[0][1], None, None)],
+        "service": [("service:" + SERVICE["integrand"], SERVICE["d"], None, SERVICE["capacity"],
+                     None)],
+        "vegas": [(VEGAS_CASES[0][0], VEGAS_CASES[0][1], None, None, None)],
+        "distributed": [(name, d, rel_tol, DIST_CAPACITY, policy)
+                        for name, d, rel_tol, policy in DIST_CASES],
     }
     runs = [(driver, case) for driver in args.drivers
-            for case in own_case.get(driver, MAIN_CASES)]
+            for case in own_case.get(driver, [(*c, None) for c in MAIN_CASES])]
     smi = card()
-    for driver, (name, d, rel_tol, capacity) in runs:
+    for driver, (name, d, rel_tol, capacity, policy) in runs:
         run = drivers[driver]
-        if driver in own_case:
+        if driver in ("service", "vegas"):
             cfg = vegas_cfg if driver == "vegas" else None
         else:
             cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity,
+                                   **({"redistribution": policy} if policy else {}),
                                    **({"sync_every": args.sync_every} if args.sync_every else {}))
         run(cfg)  # build, allocate, warm up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        walls = []
+        walls, cpus = [], []
         for _ in range(args.repeat):
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.process_time()
             res = run(cfg)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            cpus.append(time.process_time() - c0)
         wall_plain = float(np.median(walls))
+        case = name.split(":")[0]
+        row = dict(driver=driver, case=case, d=d, redistribution=policy,
+                   iterations=res.iterations, n_evals=res.n_evals,
+                   host_syncs=res.host_syncs, wall_s=wall_plain, walls_s=walls, cpus_s=cpus,
+                   discarded=getattr(res, "discarded", None), card=smi)
+        if args.walls_only:
+            print(json.dumps(row), flush=True)
+            continue
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run(cfg)
+            res = run(cfg)  # the discarded work below is this run's
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         # the device's own events (kernels, copies, memsets); the aten ops
@@ -517,19 +737,17 @@ def cmd_profile(args):
             by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e6
         gm = by_kind.get("gm_kernel", 0.0)
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-        case = name.split(":")[0]
         if args.trace_dir:
             prof.export_chrome_trace(f"{args.trace_dir}/{driver}_{case}_d{d}.json")
         print(json.dumps(dict(
-            driver=driver, case=case, d=d, iterations=res.iterations, n_evals=res.n_evals,
-            host_syncs=res.host_syncs,
-            wall_s=wall_plain, walls_s=walls, profiled_wall_s=wall, device_busy_s=total,
+            row, profiled_wall_s=wall, device_busy_s=total,
             gm_kernel_s=gm, other_device_s=total - gm, idle_s=wall - total,
             gm_share=gm / wall, advance_share=(total - gm) / wall,
             idle_share=(wall - total) / wall, device_s_by_kind=by_kind,
-            top_kernels=[(k[:80], v / 1e6) for k, v in top], card=smi,
+            top_kernels=[(k[:80], v / 1e6) for k, v in top],
             **({"mc_samples": cfg.mc_samples, "peak_bytes": torch.cuda.max_memory_allocated(),
                 **_stage_split(prof)} if driver == "vegas" else {}),
+            **(_discarded_split(prof, res, res.iterations + 1) if driver == "device" else {}),
             **(_dispatch_split(prof, res, ranks, cfg) if driver == "distributed" else {}),
         )), flush=True)
         if total == 0.0:
@@ -541,16 +759,25 @@ OPS_CASES = [("f4", 5, 1e-7, 1 << 14), ("f6", 5, 1e-4, 1 << 14)]
 
 
 def cmd_ops(args):
-    """Torch operations per rank and iteration run of four CPU ranks, by
-    phase: ``round`` (``redistribute``), ``advance`` (``classify`` and
+    """Torch operations per rank and iteration run of four ranks, by phase:
+    ``round`` (``redistribute``), ``advance`` (``classify`` and
     ``classify_split_compact``) and ``other`` (evaluate around the rule,
     metadata, snapshots).  The GM rule's own operations are left out: on
-    the card they are one kernel launch."""
+    the card they are one kernel launch.  On the CPU the round is its plain
+    version; with ``--device cuda`` (four ranks on the visible cards) it is
+    what the card path enqueues: its torch operations and its kernel
+    launches, read from the kernels' counter, one operation each."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.core import distributed as dist_mod
     from repro_torch.core import rules
     from repro_torch.core.config import QuadratureConfig
+    from repro_torch.core.ranks import cuda_devices
+
+    try:
+        from repro_torch.kernels import redistribute_round as round_kernels
+    except ImportError:  # a checkout from before the round's kernels
+        round_kernels = None
 
     phase = ["other"]
     counts = collections.Counter()
@@ -575,18 +802,30 @@ def cmd_ops(args):
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
     for owner, name, label in patches:
         setattr(owner, name, labelled(getattr(owner, name), label))
+    devices = ["cpu"] * 4 if args.device == "cpu" else cuda_devices(4)
     try:
         for name, d, rel_tol, capacity in OPS_CASES:
             cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity,
                                    **({"sync_every": args.sync_every} if args.sync_every else {}))
             counts.clear()
+            if round_kernels is not None:
+                round_kernels.reset_launch_count()
             with Count():
-                res = dist_mod.integrate_distributed(cfg, devices=["cpu"] * 4)
+                res = dist_mod.integrate_distributed(cfg, devices=devices)
+            launches = 0
+            if round_kernels is not None:
+                launches = round_kernels.launch_count("pack") + round_kernels.launch_count("splice")
+            counts["round"] += launches
             run = 4 * (res.iterations + getattr(res, "discarded", 0))
             per = {k: v / run for k, v in counts.items() if k != "rule"}
-            print(json.dumps(dict(case=name, d=d, capacity=capacity, iterations=res.iterations,
+            print(json.dumps(dict(case=name, d=d, capacity=capacity, device=args.device,
+                                  iterations=res.iterations,
+                                  discarded=getattr(res, "discarded", None),
                                   ops_per_rank_iteration=sum(per.values()), by_phase=per,
-                                  package=dist_mod.__file__)), flush=True)
+                                  round_kernel_launches=launches / run,
+                                  package=dist_mod.__file__,
+                                  **({"card": card()} if args.device == "cuda" else {}))),
+                  flush=True)
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
@@ -650,6 +889,84 @@ def cmd_sums_ablate(args):
             print(json.dumps(dict(json.loads(line), cut=name)), flush=True)
 
 
+# the profile runs of one turn of ``interleave``, each in its own process
+INTERLEAVE_RUNS = (
+    ("K=1", ("--drivers", "distributed", "--sync-every", "1")),
+    ("K=4", ("--drivers", "integrate,device,distributed", "--sync-every", "4")),
+)
+
+
+def cmd_interleave(args):
+    """``profile`` of several checkouts in turns, on one card.
+
+    ``--trees`` names checkouts (a directory holding ``src/``; ``.`` is this
+    one), each labelled by its directory name.  Their kernels are built
+    first, all at once, then each tree counts its operations (``ops
+    --device cuda``), then ``--rounds`` turns run :data:`INTERLEAVE_RUNS`
+    (``--repeat`` walls a case) for every tree, each in a process of its own
+    with that tree's ``src`` on ``PYTHONPATH``, the trees' order reversed
+    every other turn.  Every line goes to ``--out`` with its tree, run and
+    turn; the last lines are, per tree, run, driver and case, the median and
+    range of all walls, and the medians of the host CPU seconds and of the
+    discarded work.  ``--walls-only`` skips the operation count and the
+    profiled runs, whose trace takes longer than the runs themselves."""
+    here = os.path.abspath(__file__)
+    trees = [(os.path.basename(os.path.abspath(t)), os.path.abspath(t)) for t in args.trees]
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+
+    def env(root):
+        return dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+
+    builds = [subprocess.Popen([sys.executable, "-c", "from repro_torch.kernels import build; "
+                                "build.build_all()"], env=env(root)) for _, root in trees]
+    if any(proc.wait() for proc in builds):
+        raise SystemExit("interleave: a tree's kernels did not build")
+    rows = []
+    with open(args.out, "w") as out:
+        def run(label, root, name, turn, argv):
+            proc = subprocess.run([sys.executable, here, *argv], env=env(root), cwd=root,
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                raise SystemExit(f"interleave: {label} {name} failed:\n{proc.stderr[-4000:]}")
+            for line in proc.stdout.splitlines():
+                if line.startswith("{"):
+                    row = dict(json.loads(line), tree=label, run=name, turn=turn)
+                    rows.append(row)
+                    out.write(json.dumps(row) + "\n")
+                    out.flush()
+
+        if not args.walls_only:
+            for label, root in trees:
+                run(label, root, "ops", 0, ["ops", "--device", "cuda"])
+        light = ["--walls-only"] if args.walls_only else []
+        for turn in range(args.rounds):
+            for label, root in trees if turn % 2 == 0 else trees[::-1]:
+                for name, argv in INTERLEAVE_RUNS:
+                    run(label, root, name, turn,
+                        ["profile", *argv, "--repeat", str(args.repeat), *light])
+        groups = collections.defaultdict(list)
+        for row in rows:
+            if "walls_s" in row:
+                groups[(row["tree"], row["run"], row["driver"], row["case"],
+                        row["redistribution"])].append(row)
+        for (label, name, driver, case, policy), group in groups.items():
+            walls = [w for row in group for w in row["walls_s"]]
+            cpus = [c for row in group for c in row["cpus_s"]]
+            summary = dict(
+                summary=True, tree=label, run=name, driver=driver, case=case,
+                redistribution=policy,
+                wall_median_s=float(np.median(walls)), wall_min_s=min(walls),
+                wall_max_s=max(walls), walls=len(walls), cpu_median_s=float(np.median(cpus)),
+                card=group[0]["card"], iterations=group[0]["iterations"],
+                host_syncs=group[0]["host_syncs"],
+                **{k: float(np.median([r[k] for r in group])) for k in (
+                    "idle_share", "device_busy_s", "discarded", "discarded_device_s",
+                    "discarded_gm_s", "eval_rows", "eval_rows_exact")
+                   if all(r.get(k) is not None for r in group)})
+            out.write(json.dumps(summary) + "\n")
+            print(json.dumps(summary), flush=True)
+
+
 def cmd_vegas(args):
     """Phases 10a and 11a's runs: each VEGAS case twice and the pool once,
     with walls and the estimates' bits."""
@@ -682,25 +999,34 @@ def cmd_vegas(args):
                           package=repro_torch.__file__, card=smi)), flush=True)
 
 
-def _dispatch_split(prof, res, ranks, cfg):
-    """The distributed driver's fused dispatch: K, the iterations run past
-    the stop and discarded, the rows its evaluate steps covered against
-    those of windows sized from the exact counts, and the device seconds
-    (all kernels; the GM kernel) from the first discarded iteration's first
-    GM launch to the end of the run (the ranks share one card's stream, so
-    that tail is the discarded iterations' work)."""
+def _discarded_split(prof, res, kept):
+    """The evaluate steps enqueued past the stop (``discarded``; None for a
+    checkout whose driver does not report them) and the device seconds (all
+    kernels; the GM kernel) from the first GM launch after the ``kept`` the
+    result needed to the end of the run: on one card's stream that tail is
+    the discarded work."""
     from torch.autograd import DeviceType
 
     kernels = sorted((evt.time_range.start, evt.time_range.end, evt.name)
                      for evt in prof.events() if evt.device_type == DeviceType.CUDA)
     gm = [start for start, _, name in kernels if "gm_eval_kernel" in name]
-    kept = ranks * res.iterations
     cut = gm[kept] if len(gm) > kept else float("inf")
     tail = [(end - start, name) for start, end, name in kernels if start >= cut]
-    return {"sync_every": cfg.sync_every, "discarded": res.discarded,
-            "eval_rows": res.eval_rows, "eval_rows_exact": res.eval_rows_exact,
+    return {"discarded": getattr(res, "discarded", None), "gm_launches": len(gm),
             "discarded_device_s": sum(us for us, _ in tail) / 1e6,
             "discarded_gm_s": sum(us for us, name in tail if "gm_eval_kernel" in name) / 1e6}
+
+
+def _dispatch_split(prof, res, ranks, cfg):
+    """The distributed driver's fused dispatch: K, the iterations begun past
+    the stop and discarded, with their device seconds (the ranks share one
+    card's stream, so the work after the result's last GM launch is
+    theirs; :func:`_discarded_split`), and the rows its evaluate steps
+    covered against those of windows sized from the exact counts (None
+    where the checkout's driver does not report them)."""
+    return {"sync_every": cfg.sync_every, **_discarded_split(prof, res, ranks * res.iterations),
+            "eval_rows": getattr(res, "eval_rows", None),
+            "eval_rows_exact": getattr(res, "eval_rows_exact", None)}
 
 
 def _stage_split(prof):
@@ -763,20 +1089,34 @@ def main(argv=None):
     o = sub.add_parser("ops", help="torch operations per rank and iteration of the "
                                    "distributed driver, by phase (CPU)")
     o.add_argument("--sync-every", type=int, default=None)
+    o.add_argument("--device", choices=("cpu", "cuda"), default="cpu",
+                   help="cpu: the round's plain version; cuda: the card path's kernels")
+    i = sub.add_parser("interleave", help="profile of several checkouts in turns")
+    i.add_argument("--trees", type=lambda v: v.split(","), required=True,
+                   help="comma-separated checkout directories, each holding src/")
+    i.add_argument("--rounds", type=int, default=3)
+    i.add_argument("--repeat", type=int, default=5)
+    i.add_argument("--out", default="build/interleave.jsonl")
+    i.add_argument("--walls-only", action="store_true",
+                   help="no operation count and no profiled runs: walls only")
     p = sub.add_parser("profile", help="torch.profiler breakdown of the main path")
     p.add_argument("--trace-dir", default=None, help="write Chrome traces here")
     p.add_argument("--drivers", type=_drivers, default=["integrate"],
                    help="comma-separated: integrate, device, distributed, service, vegas")
     p.add_argument("--repeat", type=int, default=1,
                    help="unprofiled runs per case; wall_s is their median")
+    p.add_argument("--walls-only", action="store_true",
+                   help="no profiled run: walls, host CPU seconds, syncs and discards only")
     p.add_argument("--sync-every", type=int, default=None,
                    help="iterations per dispatch of the device and distributed drivers "
                         "(default: the config's)")
     args = ap.parse_args(argv)
-    if args.cmd not in ("ptxas", "ops") and not torch.cuda.is_available():
+    if (args.cmd != "ptxas" and getattr(args, "device", "cuda") == "cuda"
+            and not torch.cuda.is_available()):
         raise SystemExit("gm_perf: no CUDA device; this tool measures the card only")
     {"time": cmd_time, "ptxas": cmd_ptxas, "profile": cmd_profile, "sums": cmd_sums,
-     "sums-ablate": cmd_sums_ablate, "vegas": cmd_vegas, "ops": cmd_ops}[args.cmd](args)
+     "sums-ablate": cmd_sums_ablate, "vegas": cmd_vegas, "ops": cmd_ops,
+     "interleave": cmd_interleave}[args.cmd](args)
 
 
 if __name__ == "__main__":

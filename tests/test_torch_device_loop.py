@@ -44,6 +44,71 @@ def test_device_loop_equals_host_loop(name, d, rel_tol, capacity, sync_every, la
     assert (dev.n_active, dev.overflowed) == (host.n_active, host.overflowed)
     assert dev.host_syncs <= math.ceil(dev.iterations / sync_every) + 2
     assert host.host_syncs == host.iterations + 2  # one per evaluate step, one at the end
+    # evaluate steps past the stop: none when every snapshot lands at once;
+    # the rest of the last block when none lands before its read
+    steps = dev.host_syncs * sync_every if landed == "never" else dev.iterations + 1
+    assert dev.discarded == steps - (dev.iterations + 1)
+
+
+@pytest.mark.parametrize("sync_every", [1, 2, 4, 8])
+@pytest.mark.parametrize("name,d,rel_tol,capacity", [CASES[0], CASES[2]])
+def test_landed_stop_discards_nothing(name, d, rel_tol, capacity, sync_every, monkeypatch):
+    monkeypatch.setattr(tad, "_landed", lambda event: True)
+    kw = dict(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity, max_iters=400)
+    one = tad.integrate_device(TConfig(**kw, sync_every=1), device="cpu")
+    got = tad.integrate_device(TConfig(**kw, sync_every=sync_every), device="cpu")
+    assert (got.status, got.integral, got.error, got.iterations, got.n_evals, got.n_active) == (
+        one.status, one.integral, one.error, one.iterations, one.n_evals, one.n_active)
+    assert one.status == "converged" and got.discarded == one.discarded == 0
+    assert got.host_syncs == math.ceil((got.iterations + 1) / sync_every)
+
+
+@pytest.mark.parametrize(
+    "late,discarded",
+    [(1, 0), (2, 0), (3, 1), (4, 1)],
+    ids=["before-its-advance", "after-its-advance", "before-next-advance", "after-next-advance"],
+)
+def test_abandoned_steps_are_never_read(monkeypatch, late, discarded):
+    """The stop's snapshot lands ``late`` stages (evaluate, advance) after
+    the stop's evaluate step begins, none landing before: the loop enqueues
+    nothing after the next check.  The state is poisoned with NaN from the
+    stop's snapshot on; the result does not move."""
+    cfg = TConfig(d=3, integrand="f4", rel_tol=1e-7, capacity=1 << 15, max_iters=400,
+                  sync_every=8)
+    host = tad.integrate(cfg, device="cpu")
+    s = host.iterations  # index of the evaluate step that converges
+    assert s % 8 != 7  # the next step is in the same block
+    log = []
+    monkeypatch.setattr(tad, "_landed", lambda event: len(log) >= 2 * s + late)
+
+    def poison(st):
+        if len(log) >= 2 * s + 1:
+            for field in ("centers", "halfw", "est", "err", "fin_integral", "fin_error"):
+                getattr(st, field).fill_(float("nan"))
+
+    make_eval_step, split = tad.make_eval_step, tad.classify_split_compact
+
+    def spy_eval(cfg, rule, window=None):
+        step = make_eval_step(cfg, rule, window=window)
+
+        def run(st):
+            poison(st)
+            log.append("eval")
+            return step(st)
+        return run
+
+    def spy_split(st, fin, window=None):
+        poison(st)
+        log.append("advance")
+        return split(st, fin, window)
+
+    monkeypatch.setattr(tad, "make_eval_step", spy_eval)
+    monkeypatch.setattr(tad, "classify_split_compact", spy_split)
+    got = tad.integrate_device(cfg, device="cpu")
+    assert (got.status, got.integral, got.error, got.iterations, got.n_evals) == (
+        host.status, host.integral, host.error, host.iterations, host.n_evals)
+    assert got.discarded == discarded
+    assert len(log) == 2 * s + late
 
 
 def test_matches_reference_device_loop():

@@ -235,7 +235,11 @@ def cut_runs():
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 7])
 @pytest.mark.parametrize("name,d,tol", [CASES[0], CASES[2]])
-def test_results_do_not_depend_on_sync_every(port, cut_runs, name, d, tol, k):
+def test_results_do_not_depend_on_sync_every(port, cut_runs, monkeypatch, name, d, tol, k):
+    """No snapshot lands before a dispatch's read, as when the card lags:
+    every dispatch runs its K iterations, and those past the stop are
+    discarded."""
+    monkeypatch.setattr(tad, "_landed", lambda event: False)
     got = tdist.integrate_distributed(
         _config(name, d, tol, "ring", sync_every=k), devices=["cpu"] * 4
     )
@@ -250,6 +254,80 @@ def test_results_do_not_depend_on_sync_every(port, cut_runs, name, d, tol, k):
     assert cut.status == "max_iters" and cut.iterations == _CUT
     _same_run(cut, cut_runs[name])
     assert cut.host_syncs == math.ceil(_CUT / k)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("name,d,tol", [CASES[0], CASES[2]])
+def test_landed_stop_enqueues_nothing_after_it(port, monkeypatch, name, d, tol, k):
+    """Every snapshot lands at once: the iteration after the stop is never
+    begun, so nothing is discarded, at any K."""
+    monkeypatch.setattr(tad, "_landed", lambda event: True)
+    got = tdist.integrate_distributed(
+        _config(name, d, tol, "ring", sync_every=k), devices=["cpu"] * 4
+    )
+    _same_run(got, port[f"{name}-ring"])
+    assert got.discarded == 0
+    assert got.host_syncs == math.ceil(got.iterations / k)
+
+
+# stages the driver enqueues per iteration on four ranks: each rank's
+# evaluate, each rank's split, the round
+_STAGES = 4 + 4 + 1
+
+
+@pytest.mark.parametrize(
+    "late,discarded",
+    [(0, 0), (1, 1), (4, 1), (8, 1), (_STAGES, 1)],
+    ids=["at-once", "after-rank-0", "before-advance", "before-round", "after-next-iteration"],
+)
+@pytest.mark.parametrize("name,d,tol", [CASES[0], CASES[2]])
+def test_abandoned_iteration_is_never_read(port, monkeypatch, name, d, tol, late, discarded):
+    """The stop's snapshot lands ``late`` stages into the next iteration
+    (none landing before): that iteration is abandoned at the next check,
+    nothing more is enqueued, and it counts as discarded once begun.  Every
+    state is poisoned with NaN from the stop on; the result does not move,
+    so nothing of an abandoned or discarded iteration is read."""
+    base = port[f"{name}-ring"]
+    stop_it = base.iterations - 1
+    k = next(k for k in (8, 7, 6, 5) if stop_it % k != k - 1)  # stop and next in one dispatch
+    log = []
+    landed_after = _STAGES * (stop_it + 1) + late
+    monkeypatch.setattr(tad, "_landed", lambda event: len(log) >= landed_after)
+
+    def poison(st):
+        for field in ("centers", "halfw", "est", "err", "fin_integral", "fin_error"):
+            getattr(st, field).fill_(float("nan"))
+
+    make_eval_step, split, redistribute = (
+        tdist.make_eval_step, tdist.classify_split_compact, tdist.redistribute)
+
+    def spy_eval(cfg, rule, window=None):
+        step = make_eval_step(cfg, rule, window=window)
+
+        def run(st):
+            if len(log) >= _STAGES * (stop_it + 1):
+                poison(st)
+            log.append("eval")
+            return step(st)
+        return run
+
+    def spy_split(st, fin, window=None):
+        log.append("split")
+        return split(st, fin, window)
+
+    def spy_round(*args, **kwargs):
+        log.append("round")
+        return redistribute(*args, **kwargs)
+
+    monkeypatch.setattr(tdist, "make_eval_step", spy_eval)
+    monkeypatch.setattr(tdist, "classify_split_compact", spy_split)
+    monkeypatch.setattr(tdist, "redistribute", spy_round)
+    got = tdist.integrate_distributed(
+        _config(name, d, tol, "ring", sync_every=k), devices=["cpu"] * 4
+    )
+    _same_run(got, base)
+    assert got.discarded == discarded
+    assert len(log) == landed_after
 
 
 @pytest.mark.parametrize("name,d,tol", [CASES[0], CASES[2]])

@@ -142,3 +142,44 @@ def test_user_callable_refused_on_card(cuda):
     assert (on_card.status, on_card.iterations, on_card.n_evals) == (
         on_cpu.status, on_cpu.iterations, on_cpu.n_evals)
     assert abs(on_card.integral - 0.25) <= 1e-12
+
+
+def test_round_kernels_match_plain_version(cuda):
+    """The redistribution round's pack and splice kernels against their
+    plain versions on the CPU, bit for bit, over chip_smoke.py phase 3b's
+    grid (gm_perf.round_grid)."""
+    from repro_torch.kernels import redistribute_round as rk
+    from repro_torch.launch.gm_perf import round_grid, round_vs_plain
+
+    before = rk.launch_count("pack")
+    moved = 0
+    cases = list(round_grid())
+    for case in cases:
+        err, rows = round_vs_plain(*case)
+        assert err == 0.0, case
+        moved += rows
+    assert moved > 0
+    assert rk.launch_count("pack") - before == sum(case[0] for case in cases)
+
+
+@pytest.mark.parametrize("sync_every", [1, 4])
+def test_distributed_on_card_matches_cpu(cuda, sync_every):
+    """Four ranks on the card (the round's kernels) against four CPU ranks
+    (their plain versions): the same iterations, evaluations, history and
+    regions moved; one pack and one splice a rank a round."""
+    from repro_torch.core.distributed import integrate_distributed
+    from repro_torch.kernels import redistribute_round as rk
+
+    cfg = QuadratureConfig(d=3, integrand="f6", rel_tol=1e-5, capacity=1 << 13,
+                           sync_every=sync_every)
+    rk.reset_launch_count()
+    on_card = integrate_distributed(cfg, devices=[cuda] * 4)
+    packs = rk.launch_count("pack")
+    on_cpu = integrate_distributed(cfg, devices=["cpu"] * 4)
+    assert on_card.status == on_cpu.status == "converged"
+    assert (on_card.iterations, on_card.n_evals, on_card.moved) == (
+        on_cpu.iterations, on_cpu.n_evals, on_cpu.moved)
+    assert [h[3] for h in on_card.history] == [h[3] for h in on_cpu.history]
+    assert on_card.moved > 0
+    assert 4 * on_card.iterations <= packs == rk.launch_count("splice") <= 4 * (
+        on_card.iterations + on_card.discarded)

@@ -175,6 +175,59 @@ def test_round_work_does_not_depend_on_counts():
     assert all(t == traces[0] for t in traces[1:])
 
 
+def test_cpu_states_take_the_plain_round(monkeypatch):
+    """On CPU states the round runs the kernels' plain versions, once per
+    rank each, and never a kernel wrapper; the wrappers themselves refuse
+    CPU tensors (the caller picks the plain version)."""
+    from repro_torch.kernels import redistribute_round as rk
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper ran on CPU states")
+
+    monkeypatch.setattr(rk, "round_pack", refuse)
+    monkeypatch.setattr(rk, "round_splice", refuse)
+    calls = []
+    for name in ("round_pack_ref", "round_splice_ref"):
+        plain = getattr(tred, name)
+        monkeypatch.setattr(tred, name, lambda *a, plain=plain, name=name: calls.append(name)
+                            or plain(*a))
+    arrays = _stacked_arrays(4, [40, 0, 5, 10], 0, 3)
+    got, after = _port_round(arrays, 4, 16, 48, 0)
+    assert after == [27, 13, 5, 10]
+    assert sorted(calls) == ["round_pack_ref"] * 4 + ["round_splice_ref"] * 4
+    monkeypatch.undo()
+
+    states = Ranks(["cpu"] * 2).states_from_stacked(_stacked_arrays(2, [40, 0], 0, 3))
+    st = states[0]
+    counts = torch.tensor([40, 0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rk.round_pack(counts, 0, 1, _CAP, _LIMIT, st.centers, st.halfw)
+    plan, payload = tred.round_pack_ref(counts, 0, 1, _CAP, _LIMIT, st.centers, st.halfw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rk.round_splice(plan, payload, st.centers, st.halfw, st.est, st.err, st.axis,
+                        st.active, st.fresh)
+    assert rk.launch_count("pack") == rk.launch_count("splice") == 0
+
+
+def test_plain_pack_and_splice_follow_the_plan():
+    """The plain versions' plan is ``round_counts``' arithmetic; the payload
+    holds the donor's tail rows and zeros after them; the splice returns
+    the count after the round and the rows sent."""
+    counts = [40, 0, 5, 10]
+    arrays = _stacked_arrays(4, counts, 0, 3)
+    states = Ranks(["cpu"] * 4).states_from_stacked(arrays)
+    n_send, n_recv = tred.round_counts(counts, 1, 16, 48)
+    t = torch.tensor(counts)
+    for r, st in enumerate(states):
+        plan, payload = tred.round_pack_ref(t, r, 1, 16, 48, st.centers, st.halfw)
+        assert plan[:3].tolist() == [n_send[r], n_recv[r], counts[r] - n_send[r]]
+        assert payload.shape == (16, 2 * _D)
+        sent = slice(counts[r] - n_send[r], counts[r])
+        want = np.concatenate([arrays["centers"][r][sent], arrays["halfw"][r][sent]], 1)
+        np.testing.assert_array_equal(payload[:n_send[r]].numpy(), want)
+        assert not payload[n_send[r]:].any()
+
+
 def test_round_reads_counts_when_not_given():
     arrays = _stacked_arrays(4, [40, 0, 5, 10], 0, 3)
     got, after = _port_round(arrays, 4, 16, 48, 0, n_rows="summed")
