@@ -17,15 +17,22 @@ Phases, each of which passes or raises (a failure exits nonzero):
    region), and the batch service's per-slot theta columns (lanes_per_col
    in {1, 7, 256, 1000}, genz_gaussian and genz_product_peak at d in
    {2, 5, 8}); float64 at the bars of tests/test_kernels.py and within
-   1e-14 relative, float32 against the float64 plain version;
-3b. the redistribution round's pack and splice kernels against their
-   plain versions on the CPU, bit for bit (plan, payload, every field of
-   the store, the count after the round and the rows sent), over
-   gm_perf.py's round_grid: 2, 3, 4, 8 ranks, every shift of each
-   schedule, float64 and float32, d = 3, 5, 8, an empty rank, ranks full
-   to the round's limit and to the store, a message cap above the store;
-   then each kernel timed at phase 6's shape (cap 512, 2^22 rows a rank,
-   d = 5 and 8) beside its plain version on the card and its byte bound;
+   1e-14 relative, float32 against the float64 plain version.  The plain
+   version takes its 2^d corners PLAIN_CORNER_COLS columns to a call
+   (corner_chunk), bit-equal to one corner a call at d <= 8, B = 257;
+3b. the redistribution round's kernels (redistribute_round, one launch a
+   device over every rank on it; redistribute_pack, for donors whose
+   receiver lives on another device) against their plain versions on the
+   CPU, bit for bit (every field of the store, the count after the round
+   and the rows sent, the packed blocks), over gm_perf.py's round_grid: 2,
+   3, 4, 8 ranks on one card, every shift of each schedule, float64 and
+   float32, d = 3, 5, 8, an empty rank, ranks full to the round's limit and
+   to the store, a message cap above the store; each case twice, with
+   every donor read in place and with every other donor packed and read
+   from its block.  Then the whole round at phase 6's shape (four ranks,
+   cap 512, 2^22 rows a rank, d = 5 and 8): ms a round, host ms, device
+   time, beside the plain version on the card, the byte bound, the pack
+   alone and an empty kernel's launch (the launch floor);
 4. main path: repro_torch.core.adaptive.integrate on the card at capacity
    2^22 in float64, three cases, each of which must converge to its exact
    value in the iterations and evaluations recorded for it, with one
@@ -43,10 +50,11 @@ Phases, each of which passes or raises (a failure exits nonzero):
    takes the iterations and evaluations recorded for it, at sync_every 1
    (one host read per iteration) and 4 (one per fused dispatch of four),
    each twice in turns, with the same results at both; one GM launch per
-   rank per evaluate step enqueued, and one pack and one splice launch per
-   rank per round (a dispatch stops enqueueing at the first landed
-   snapshot that shows the stop; the iterations begun before it are
-   discarded and logged), and one synchronising call per dispatch;
+   rank per evaluate step enqueued, and one round launch per device per
+   round, with no pack where every rank shares one card (a dispatch stops
+   enqueueing at the first landed snapshot that shows the stop; the
+   iterations begun before it are discarded and logged), and one
+   synchronising call per dispatch;
 7. the Gauss-Kronrod rule (torch operations) on the card, with the
    iterations and evaluations of the same run on the CPU;
 8. timings with CUDA events at the main path's window size: the kernel
@@ -185,9 +193,11 @@ Phases, each of which passes or raises (a failure exits nonzero):
    sums kernel launches.
 
 17. the dry run (repro_torch.launch.dryrun; torch operations on fake
-   tensors, no kernel of the port): (a) DRYRUN_CELLS at full width, each
-   its step traced as a DTensor program over a fake process group of 256
-   or 512 ranks with a cuda DeviceMesh ((16, 16) or (2, 16, 16)): the
+   tensors, no kernel of the port): (a) DRYRUN_CELLS at their published
+   widths and a cut depth (the leading dense layers and two periods of the
+   layer pattern), each its step traced as a DTensor program over a fake
+   process group of 256 or 512 ranks with a cuda DeviceMesh ((16, 16) or
+   (2, 16, 16)): the
    train step, the chunked prefill, the encoder forward (hubert), decode
    with deepseek-v2-236b's MLA rank-sharded cache and qwen3-moe's
    sequence-sharded KV cache, the 500k decode; one JSON line per cell, each
@@ -260,6 +270,9 @@ GK_CASES = [("f3", 3, 1e-7), ("f4", 2, 1e-8)]
 EXPECTED_GK = {"f3": (0, 27000), "f4": (5, 14400)}
 # phase 14's machine file, catalog and report (gitignored)
 PERF_DIR = os.path.join(HERE, "build", "perf_torch")
+# columns of one call of the plain version's integrand in phase 3 (its
+# corner_chunk is this over B)
+PLAIN_CORNER_COLS = 2**22
 # float64 kernel vs plain version: the bar of tests/test_kernels.py, and the
 # parity the kernel keeps (it repeats the plain version's operations)
 RTOL64 = 1e-12
@@ -318,7 +331,7 @@ def phase_build():
             kernel = None
     log("  redistribute_round kernels: registers / spill bytes (stores+loads):")
     for line in built["redistribute_round"].log.splitlines():
-        m = re.search(r"Compiling entry function '\S*redistribute_(pack|splice)I([df])", line)
+        m = re.search(r"Compiling entry function '\S*redistribute_(round|pack)I([df])", line)
         if m:
             kernel = f"{m.group(1)}<{'double' if m.group(2) == 'd' else 'float'}>"
         elif kernel and "spill stores" in line:
@@ -329,19 +342,26 @@ def phase_build():
             kernel = None
 
 
-def _plain(entry, centers, halfw, theta):
+def _corner_chunk(b):
+    """Corners a call of the plain version's integrand takes at B = b: its
+    launches, most of them the 2^d corners', bound it on the card."""
+    return max(1, PLAIN_CORNER_COLS // b)
+
+
+def _plain(entry, centers, halfw, theta, chunked=True):
     """The plain PyTorch version on the same CUDA tensors."""
     from repro_torch.kernels.ref import genz_malik_eval_soa_ref
 
     ct, ht, rows = soa(entry, centers, halfw, theta)
+    chunk = _corner_chunk(ct.shape[1]) if chunked else 1
     if rows is None:
-        return genz_malik_eval_soa_ref(entry.fn, ct, ht)
+        return genz_malik_eval_soa_ref(entry.fn, ct, ht, corner_chunk=chunk)
     d = ct.shape[0]  # every family's theta fields are (d,) leaves
 
     def fn(x, r):
         return entry.fn(x, dict(zip(entry.theta_fields, r.split(d))))
 
-    return genz_malik_eval_soa_ref(fn, ct, ht, rows)
+    return genz_malik_eval_soa_ref(fn, ct, ht, rows, corner_chunk=chunk)
 
 
 def _kernel(entry, centers, halfw, theta, block=0):
@@ -429,11 +449,14 @@ def _check_per_lane(rng):
             def fn(x, r, entry=entry, d=d):
                 return entry.fn(x, dict(zip(entry.theta_fields, r.split(d))))
 
+            chunk = _corner_chunk(c.shape[1])
             got = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c, h, rows)
-            worst = max(worst, _check64(got, genz_malik_eval_soa_ref(fn, c, h, rows),
+            worst = max(worst, _check64(got, genz_malik_eval_soa_ref(fn, c, h, rows,
+                                                                     corner_chunk=chunk),
                                         f"{name} d={d} per-lane theta"))
             got32 = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c.float(), h.float(), rows.float())
-            ref32 = genz_malik_eval_soa_ref(fn, c.float(), h.float(), rows.float())
+            ref32 = genz_malik_eval_soa_ref(fn, c.float(), h.float(), rows.float(),
+                                            corner_chunk=chunk)
             for g, r in zip(got32[:3], ref32[:3]):
                 torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6 * float(r.abs().max()) + 1e-38,
                                            msg=lambda m: f"{name} d={d} per-lane float32: {m}")
@@ -465,13 +488,15 @@ def _check_theta_cols(rng):
                     return entry.fn(x, dict(zip(entry.theta_fields, r.split(d))))
 
                 what = f"{name} d={d} lanes_per_col={lanes}"
+                chunk = _corner_chunk(c.shape[1])
                 got = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c, h, cols, lanes_per_col=lanes)
-                ref = genz_malik_eval_soa_ref(fn, c, h, cols, lanes_per_col=lanes)
+                ref = genz_malik_eval_soa_ref(fn, c, h, cols, lanes_per_col=lanes,
+                                              corner_chunk=chunk)
                 worst = max(worst, _check64(got, ref, what + " per-slot theta"))
                 got32 = gm_kernel.genz_malik_eval_soa(entry.kernel_id, c.float(), h.float(),
                                                       cols.float(), lanes_per_col=lanes)
                 ref32 = genz_malik_eval_soa_ref(fn, c.float(), h.float(), cols.float(),
-                                                lanes_per_col=lanes)
+                                                lanes_per_col=lanes, corner_chunk=chunk)
                 for g, r in zip(got32[:3], ref32[:3]):
                     torch.testing.assert_close(
                         g, r, rtol=1e-5, atol=1e-6 * float(r.abs().max()) + 1e-38,
@@ -499,10 +524,16 @@ def phase_kernel_vs_plain():
     deep = {14: ["f4", "f6", "genz_gaussian", "monomial"],
             15: ["f4", "genz_gaussian"], 16: ["f4", "genz_gaussian"]}
     cases += [(d, 257, deep.get(d, names)) for d in range(1, 17) if d not in swept]
+    n_unchunked = 0
     for d, b, these in cases:
         for name in these:
             entry, c, h, theta = inputs(name, d, b, rng)
             ref = _plain(entry, c, h, theta)
+            if d <= 8 and b == 257:
+                # the plain version's corner chunk changes no bit on the card
+                one = _plain(entry, c, h, theta, chunked=False)
+                assert all(bits_equal(x, y) for x, y in zip(ref, one)), f"{name} d={d} chunk"
+                n_unchunked += 1
             got = _kernel(entry, c, h, theta)
             worst64 = max(worst64, _check64(got, ref, f"{name} d={d} B={b} float64"))
             got32 = _kernel(entry, c.float(), h.float(), theta)
@@ -535,7 +566,9 @@ def phase_kernel_vs_plain():
         f"(d = 1..16, broadcast, per-lane and per-slot theta); largest relative error float64 "
         f"{worst64:.3e} (bars {RTOL64:g} and {PARITY64:g}); "
         f"largest float32 error {worst32:.3f} of its bar; {overflowed} float32 "
-        f"estimates overflowed in both the kernel and the plain version")
+        f"estimates overflowed in both the kernel and the plain version; the plain version's "
+        f"corners {PLAIN_CORNER_COLS} columns a call, bit-equal to one corner a call in "
+        f"{n_unchunked} cases")
 
 
 def phase_main_path():
@@ -649,8 +682,9 @@ def phase_distributed(main_rows, smi):
 
     single = {row["case"]: row for row in main_rows}
     devices = cuda_devices(DIST_RANKS)
+    n_devices = len(set(devices))
     total = 0
-    rounds = {"pack": 0, "splice": 0}
+    rounds = dict.fromkeys(rk.KERNELS, 0)
     imbalance = {}
     for name, d, rel_tol, policy in DIST_CASES:
         case = name.split(":")[0]
@@ -667,7 +701,7 @@ def phase_distributed(main_rows, smi):
             res, wall, sync_calls = _sync_counted(
                 lambda: integrate_distributed(cfg, devices=devices))
             launches = gm_kernel.launch_count()
-            packs, splices = rk.launch_count("pack"), rk.launch_count("splice")
+            by_kernel = {k: rk.launch_count(k) for k in rk.KERNELS}
             rel = abs(res.integral - exact) / abs(exact)
             mean_share = res.n_evals / DIST_RANKS
             row = dict(
@@ -679,7 +713,7 @@ def phase_distributed(main_rows, smi):
                 share_of_mean=(res.evals_per_device / mean_share).tolist(),
                 mean_imbalance=res.mean_imbalance(), regions_moved=res.moved,
                 host_syncs=res.host_syncs, sync_calls=sync_calls, launches=launches,
-                round_launches=dict(pack=packs, splice=splices),
+                round_launches=by_kernel,
                 discarded=res.discarded, eval_rows=res.eval_rows,
                 eval_rows_exact=res.eval_rows_exact,
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -696,12 +730,15 @@ def phase_distributed(main_rows, smi):
             assert res.iterations * DIST_RANKS <= launches <= (
                 res.iterations + k - 1) * DIST_RANKS, row
             assert launches <= (res.iterations + res.discarded) * DIST_RANKS, row
-            assert packs == splices, row
+            # one round launch a device a round run; a pack only where a
+            # donor's receiver lives on another card
             if policy == "off":
-                assert packs == 0, row
+                assert by_kernel == dict.fromkeys(rk.KERNELS, 0), row
             else:
-                assert res.iterations * DIST_RANKS <= packs <= (
-                    res.iterations + res.discarded) * DIST_RANKS, row
+                assert res.iterations * n_devices <= by_kernel["round"] <= (
+                    res.iterations + res.discarded) * n_devices, row
+            if n_devices == 1:
+                assert by_kernel["pack"] == 0, row
             assert res.eval_rows >= res.eval_rows_exact, row
             if k == 1:
                 assert res.discarded == 0 and res.eval_rows == res.eval_rows_exact, row
@@ -715,35 +752,45 @@ def phase_distributed(main_rows, smi):
             walls[k].append(wall)
             imbalance[(case, policy)] = res.mean_imbalance()
             total += launches
-            rounds["pack"] += packs
-            rounds["splice"] += splices
+            for kernel, count in by_kernel.items():
+                rounds[kernel] += count
         log(json.dumps(dict(phase="distributed_walls", case=case, redistribution=policy,
                             walls_s={str(k): w for k, w in walls.items()}, card=smi)))
     assert imbalance[("f6", "ring")] <= imbalance[("f6", "off")] + 0.05, imbalance
-    assert rounds["pack"] > 0, rounds
+    assert rounds["round"] > 0, rounds
     return total, rounds
 
 
 def phase_round_kernels(smi):
-    """Phase 3b: the redistribution round's two kernels against their plain
+    """Phase 3b: the redistribution round's kernels against their plain
     versions (kernels/ref.py, on the CPU), bit for bit, over gm_perf.py's
-    round_grid: 2, 3, 4 and 8 ranks, every shift of their schedules,
-    float64 and float32, d = 3, 5, 8, an empty rank, a rank full to the
-    round's limit and one full to the store, a message cap below and above
-    the store's 64 rows.  Then each kernel timed at phase 6's shape
-    (gm_perf.time_round: 4 ranks, cap 512, 2^22 rows a rank, d = 5 and 8)."""
+    round_grid: 2, 3, 4 and 8 ranks on one card, every shift of their
+    schedules, float64 and float32, d = 3, 5, 8, an empty rank, a rank full
+    to the round's limit and one full to the store, a message cap below and
+    above the store's 64 rows; each case with every donor read in place,
+    then with every other donor packed and read from its block.  Then the
+    round timed at phase 6's shape (gm_perf.time_round: 4 ranks, cap 512,
+    2^22 rows a rank, d = 5 and 8)."""
+    from repro_torch.kernels import redistribute_round as rk
+
     t0 = time.perf_counter()
-    cases = moved = 0
+    cases = checks = moved = 0
     worst = 0.0
+    before = {k: rk.launch_count(k) for k in rk.KERNELS}
     for case in round_grid():
-        err, rows = round_vs_plain(*case)
-        worst = max(worst, err)
-        moved += rows
+        for staged in (False, True):
+            err, rows = round_vs_plain(*case, staged=staged)
+            worst = max(worst, err)
+            moved += rows
+            checks += 1
         cases += 1
-    row = dict(phase="round_kernels", card=smi, cases=cases, rows_moved=moved,
-               max_abs_err=worst, wall_s=time.perf_counter() - t0)
+    launches = {k: rk.launch_count(k) - before[k] for k in rk.KERNELS}
+    row = dict(phase="round_kernels", card=smi, cases=cases, checks=checks, rows_moved=moved,
+               launches=launches, max_abs_err=worst, wall_s=time.perf_counter() - t0)
     log(json.dumps(row))
-    assert cases == 156 and moved > 0 and worst == 0.0, row
+    # one round launch a check, one pack launch a staged check
+    assert cases == 156 and checks == 312 and moved > 0 and worst == 0.0, row
+    assert launches == {"round": 312, "pack": 156}, row
     timings = []
     for d in ROUND_TIMED["dims"]:
         timings.append(time_round(d))
@@ -824,12 +871,12 @@ def phase_timing():
         ct, ht, rows = soa(entry, c, h, theta)
         before = gm_kernel.launch_count()
         got = _kernel(entry, c, h, theta)
-        ref = _plain(entry, c, h, theta)
+        ref = _plain(entry, c, h, theta, chunked=False)  # timed as the entry points call it
         _check64(got, ref, f"{name} d={d} B={TIMED_B}")
         max_abs = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         ms = time_ms(lambda: gm_kernel.genz_malik_eval_soa(entry.kernel_id, ct, ht, rows), 50)
         ops_ms = time_ms(lambda: _kernel(entry, c, h, theta), 50)
-        plain_ms = time_ms(lambda: _plain(entry, c, h, theta), 20)
+        plain_ms = time_ms(lambda: _plain(entry, c, h, theta, chunked=False), 20)
         assert gm_kernel.launch_count() - before == 1 + 2 * (3 + 50)
         row = dict(integrand=name, d=d, B=TIMED_B, dtype="float64", ms=ms,
                    ms_via_ops=ops_ms, plain_ms=plain_ms,
@@ -1522,7 +1569,6 @@ def phase_observatory(smi, main_rows, timings, metrics_path):
     from repro_torch.kernels import genz_malik_eval as gm_kernel
     from repro_torch.perf import catalog, machine, report
 
-    t0 = time.perf_counter()
     os.makedirs(PERF_DIR, exist_ok=True)
     # (a) the machine file
     m = machine.profile_machine(fast=True, device="cuda")
@@ -1642,7 +1688,6 @@ def phase_observatory(smi, main_rows, timings, metrics_path):
     assert batch["worst_vs_bar"] <= 10, row
     assert launches > 0
     os.remove(metrics_path)
-    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1655,7 +1700,6 @@ def phase_lm(smi):
     from repro_torch.kernels import vegas_sums as vs
     from repro_torch.launch import lm_perf
 
-    t0 = time.perf_counter()
     gm_kernel.reset_launch_count()
     vs.reset_launch_count()
     for arch in lm_perf.SERVE_ARCHS:
@@ -1675,7 +1719,6 @@ def phase_lm(smi):
                         stderr=proc.stderr.splitlines()[-5:])))
     assert proc.returncode == 0, proc.stderr
     assert gm_kernel.launch_count() == 0 and vs.launch_count() == 0
-    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_lm_train(smi):
@@ -1689,7 +1732,6 @@ def phase_lm_train(smi):
     from repro_torch.kernels import vegas_sums as vs
     from repro_torch.launch import lm_perf
 
-    t0 = time.perf_counter()
     gm_kernel.reset_launch_count()
     vs.reset_launch_count()
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -1725,11 +1767,11 @@ def phase_lm_train(smi):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     assert gm_kernel.launch_count() == 0 and vs.launch_count() == 0
-    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
 
-# phase 17's full-width cells (arch, shape, multi-pod): every step kind,
-# both meshes, a MoE architecture, the MLA decode override and the encoder
+# phase 17's cells (arch, shape, multi-pod), at their published widths:
+# every step kind, both meshes, a MoE architecture, the MLA decode override
+# and the encoder.  Each is traced at a cut depth (_cell_depth).
 DRYRUN_CELLS = (
     ("deepseek-7b", "train_4k", False),
     ("hubert-xlarge", "prefill_32k", False),
@@ -1790,6 +1832,13 @@ def _calibration_programs():
     )
 
 
+def _cell_depth(cfg):
+    """A dry-run cell's depth: the dense layers that lead, then two periods
+    of the layer pattern, so every kind of layer is traced, and repeated;
+    each layer's trace costs host seconds at the published widths."""
+    return cfg.first_k_dense + 2 * cfg.block_pattern_period
+
+
 def phase_dryrun(smi):
     """Phase 17: (a) DRYRUN_CELLS on fake cuda meshes, (b) the memory
     model's calibration on the card."""
@@ -1805,8 +1854,9 @@ def phase_dryrun(smi):
     vs.reset_launch_count()
     for arch, shape, multi in DRYRUN_CELLS:
         mb = dryrun.MICROBATCH_DEFAULTS.get(arch, 8)
-        rec = dryrun.run_cell(arch, shape, multi, device="cuda", microbatches=mb)
-        log(json.dumps(dict(phase="dryrun", card=smi, **rec)))
+        depth = _cell_depth(get_config(arch))
+        rec = dryrun.run_cell(arch, shape, multi, device="cuda", microbatches=mb, n_layers=depth)
+        log(json.dumps(dict(phase="dryrun", card=smi, n_layers=depth, **rec)))
         assert rec["status"] == "ok", rec
         assert rec["flops"] > 0 and rec["collectives"]["count"] > 0, rec
     t_cells = time.perf_counter() - t0
@@ -1831,7 +1881,6 @@ def phase_dryrun(smi):
         assert abs(ratio - 1) <= CALIBRATION_TOL, (name, predicted, measured)
     dist.destroy_process_group()
     assert gm_kernel.launch_count() == 0 and vs.launch_count() == 0
-    log(f"phase 17: {time.perf_counter() - t0:.1f} s (cells {t_cells:.1f} s)")
 
 
 def phase_vegas_timing():
@@ -1855,41 +1904,69 @@ def phase_vegas_timing():
     return rows
 
 
+def _stopwatch():
+    """stamp(label) logs the seconds since the last stamp and since the
+    first, so that a run's log shows where its time limit goes."""
+    t0 = last = time.perf_counter()
+
+    def stamp(label):
+        nonlocal last
+        now = time.perf_counter()
+        log(f"time: {label} {now - last:.1f} s, {now - t0:.1f} s in all")
+        last = now
+
+    return stamp
+
+
 def main():
     smi = phase_device()
+    stamp = _stopwatch()
     phase_build()
+    stamp("phase 2 (build)")
     phase_kernel_vs_plain()
+    stamp("phase 3 (GM kernel vs plain)")
     round_err, round_timings = phase_round_kernels(smi)
+    stamp("phase 3b (round kernels)")
     launches, main_rows = phase_main_path()
     launches += phase_device_loop(main_rows)
+    stamp("phases 4-5 (main path, device loop)")
     dist_launches, round_launches = phase_distributed(main_rows, smi)
     launches += dist_launches
+    stamp("phase 6 (distributed)")
     phase_gauss_kronrod()
     timings = phase_timing()
+    stamp("phases 7-8 (Gauss-Kronrod, GM timing)")
     service_launches, phase9 = phase_service()
     launches += service_launches
+    stamp("phase 9 (service)")
     phase_vegas_kernel_vs_plain()
     vegas_launches, _ = phase_vegas()
     vegas_launches += phase_vegas_pool()
+    stamp("phases 10-11a (VEGAS)")
     gm_graceful, mc_graceful, _ = phase_graceful(phase9)
     launches += gm_graceful
     vegas_launches += mc_graceful
     gm_resilience, mc_resilience = phase_resilience(phase9, smi)
     launches += gm_resilience
     vegas_launches += mc_resilience
-    t13 = time.perf_counter()
+    stamp("phases 11b-12 (graceful, resilience)")
     gm_telemetry, mc_telemetry = phase_telemetry(smi)
     launches += gm_telemetry
     vegas_launches += mc_telemetry
     phase_gk_service(smi)
     cli_launches, metrics_path = phase_cli(smi)
     launches += cli_launches
-    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    stamp("phase 13 (telemetry, GK service, CLI)")
     launches += phase_observatory(smi, main_rows, timings, metrics_path)
+    stamp("phase 14 (observatory)")
     phase_lm(smi)
+    stamp("phase 15 (LM serve)")
     phase_lm_train(smi)
+    stamp("phase 16 (LM train)")
     phase_dryrun(smi)
+    stamp("phase 17 (dry run)")
     vt, *others = phase_vegas_timing()
+    stamp("sums timing")
     t = timings[0]
     kernel = dict(
         name="genz_malik_eval", route="cuda",
@@ -1911,19 +1988,32 @@ def main():
                                          "library_ms", "bound_ms", "max_abs_err")}
                       for r in others],
     )
+    t = round_timings[0]
+    at = f"d={t['d']} cap={ROUND_TIMED['cap']} C={ROUND_TIMED['capacity']} float64"
     rounds = [
-        dict(name=f"redistribute_{part}", route="cuda",
+        dict(name="redistribute_round", route="cuda",
              source="src/repro_torch/kernels/csrc/redistribute_round.cu",
-             replaces=f"src/repro/core/redistribution.py:{line} (redistribute, {what}; "
+             replaces="src/repro/core/redistribution.py:145 (redistribute: stats, counts, "
+                      "retire and splice of one round, every rank of a device in one launch; "
                       "XLA, no TPU kernel)",
-             launches=round_launches[part], max_abs_err=round_err,
-             **{k: round_timings[0][part][k] for k in (
+             launches=round_launches["round"], max_abs_err=round_err,
+             **{k: t["round"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "host_ms",
+                 "device_ms")},
+             launch_floor_ms=t["floor"]["ms"], launch_floor_kernel_ms=t["floor"]["kernel_ms"],
+             at=f"{at}, four ranks on one card, the whole round",
+             other_shapes=[dict(d=x["d"], **x["round"]) for x in round_timings[1:]]),
+        dict(name="redistribute_pack", route="cuda",
+             source="src/repro_torch/kernels/csrc/redistribute_round.cu",
+             replaces="src/repro/core/redistribution.py:192 (redistribute, the payload; XLA, "
+                      "no TPU kernel)",
+             # it runs only for a donor whose receiver is on another card:
+             # phase 6's four ranks share one card, so its count there is 0
+             launches=round_launches["pack"], max_abs_err=round_err,
+             **{k: t["pack"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms")},
-             at=f"d={round_timings[0]['d']} cap={ROUND_TIMED['cap']} "
-                f"C={ROUND_TIMED['capacity']} float64",
-             other_shapes=[dict(d=t["d"], **t[part]) for t in round_timings[1:]])
-        for part, line, what in (("pack", 163, "stats, counts and payload"),
-                                 ("splice", 201, "retire and splice"))
+             at=f"{at}, one donor's block",
+             other_shapes=[dict(d=x["d"], **x["pack"]) for x in round_timings[1:]]),
     ]
     log(f"card: {smi}")
     log(json.dumps({"kernels": [kernel, sums, *rounds]}))

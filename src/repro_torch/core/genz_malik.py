@@ -161,16 +161,23 @@ def _eval_pair_group(f, centers, halfw):
     return total
 
 
-def _eval_corner_group(f, centers, halfw):
-    """Group 4 sum over the 2^d corners; bit i of k set = axis i negative."""
-    d = centers.shape[0]
+def _eval_corner_group(f, centers, halfw, chunk=1):
+    """Group 4 sum over the 2^d corners; bit i of k set = axis i negative.
+
+    ``chunk`` corners go through one call of ``f``; the sum adds them one
+    at a time, in the order of k, whatever the chunk.
+    """
+    d, b = centers.shape
     step = LAMBDA5 * halfw  # (d, B)
     k = torch.arange(2**d, device=centers.device)[:, None]
     bits = (k >> torch.arange(d, device=centers.device)[None, :]) & 1
     signs = (1 - 2 * bits).to(centers.dtype)  # (2^d, d) of +-1
     total = torch.zeros_like(centers[0])
-    for sign in signs:
-        total = total + f(centers + step * sign[:, None])
+    for k0 in range(0, 2**d, chunk):
+        sign = signs[k0:k0 + chunk].T[:, :, None]  # (d, chunk, 1)
+        x = centers[:, None, :] + step[:, None, :] * sign
+        for v in f(x.reshape(d, -1)).reshape(-1, b):
+            total = total + v
     return total
 
 
@@ -178,12 +185,17 @@ def gm_eval_reference(
     f: Callable[[torch.Tensor], torch.Tensor],
     centers: torch.Tensor,
     halfw: torch.Tensor,
+    corner_chunk: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain batched GM evaluation.
 
     Args:
       f: integrand mapping (d, N) coordinates -> (N,) values.
       centers, halfw: (B, d) region centres / halfwidths.
+      corner_chunk: corners evaluated by one call of ``f`` (on N = chunk B
+        columns, corner-major); the sum still adds one corner at a time in
+        order.  On the card the plain version is bound by its launches,
+        most of them the 2^d corners', and a larger chunk cuts them.
 
     Returns:
       (i7, i5, i3, fourth_diff): degree-7/5/3 estimates (B,) each, already
@@ -197,7 +209,7 @@ def gm_eval_reference(
 
     sum2, sum3, f0, diffs = _eval_axis_groups(f, ct, ht)
     sum4 = _eval_pair_group(f, ct, ht)
-    sum5 = _eval_corner_group(f, ct, ht)
+    sum5 = _eval_corner_group(f, ct, ht, corner_chunk)
 
     scale = row_prod(ht)  # (B,)
     i7 = scale * (w.w1 * f0 + w.w2 * sum2 + w.w3 * sum3 + w.w4 * sum4 + w.w5 * sum5)

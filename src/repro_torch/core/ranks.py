@@ -11,8 +11,10 @@ collectives become plain tensor operations over the per-rank values:
 
 - ``psum`` / ``pmax``: the per-rank tensors are gathered to the first
   rank's device and summed (or maxed) in rank order;
-- ``ppermute``: ``Tensor.to(dst_device, non_blocking=True)``, which between
-  two GPUs is a peer-to-peer copy.
+- ``ppermute``: the redistribution round (``redistribution.RoundPlan``)
+  copies a donor's block into one kept on the receiver's device
+  (``Tensor.copy_``), which between two GPUs is a peer-to-peer copy;
+  between ranks of one device nothing moves.
 
 Why not ``torch.distributed``: NCCL refuses two ranks on one GPU, so a
 multi-process port could run the redistribution on a one-card machine only
@@ -99,22 +101,6 @@ class Ranks:
         """Elementwise maximum of the per-rank tensors, on the first rank's
         device."""
         return torch.amax(self.gather(tensors), dim=0)
-
-    def ppermute(
-        self, tensors: Sequence[torch.Tensor], perm: Sequence[tuple[int, int]]
-    ) -> list[torch.Tensor]:
-        """Route ``tensors[src]`` to rank ``dst`` for every ``(src, dst)``.
-
-        ``perm`` must be a bijection on the ranks (as ``jax.lax.ppermute``
-        requires of a full permutation).  A tensor that stays on its device
-        is not copied.
-        """
-        out: list = [None] * self.n
-        for src, dst in perm:
-            out[dst] = tensors[src].to(self.devices[dst], non_blocking=True)
-        if any(t is None for t in out):
-            raise ValueError(f"permutation {perm} does not cover {self.n} ranks")
-        return out
 
     def states_from_stacked(self, arrays: Mapping[str, np.ndarray]) -> list[RegionState]:
         """Per-rank states from arrays with a leading rank axis, one per field

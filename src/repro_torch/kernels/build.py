@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 
 # The GM kernel: the dispatcher, and one unit per (working type, dimension)
 # with that pair's ten integrand kernels.  The VEGAS sample reductions: one
-# unit.  The redistribution round's pack and splice: one unit.
+# unit.  The redistribution round's round and pack kernels: one unit.
 LIBRARIES: dict[str, tuple[tuple[str, tuple[str, ...]], ...]] = {
     "genz_malik_eval": (
         ("genz_malik_eval.cu", ()),

@@ -38,6 +38,7 @@ def genz_malik_eval_soa_ref(
     halfw: torch.Tensor,  # (d, B)
     theta_rows: Optional[torch.Tensor] = None,  # (n_theta, B)
     lanes_per_col: int = 0,
+    corner_chunk: int = 1,
 ):
     """Returns (i7, i5, i3, diffs (d, B)), as the CUDA kernel does.
 
@@ -45,12 +46,19 @@ def genz_malik_eval_soa_ref(
     with them, ``f(x, theta_rows)`` is called with the ``(n_theta, B)`` rows.
     With ``lanes_per_col`` > 0, ``theta_rows`` holds one column per run of
     ``lanes_per_col`` lanes, as the kernel takes it; here each column is
-    repeated over its lanes.
+    repeated over its lanes.  ``corner_chunk`` is gm_eval_reference's: the
+    theta rows are tiled over a chunk's corners.
     """
     if lanes_per_col:
         theta_rows = theta_rows.repeat_interleave(lanes_per_col, dim=1)
-    fx = f if theta_rows is None else (lambda x: f(x, theta_rows))
-    i7, i5, i3, diffs = gm_eval_reference(fx, centers.T, halfw.T)
+    b = centers.shape[1]
+
+    def fx(x):
+        if theta_rows is None:
+            return f(x)
+        return f(x, theta_rows if x.shape[1] == b else theta_rows.repeat(1, x.shape[1] // b))
+
+    i7, i5, i3, diffs = gm_eval_reference(fx, centers.T, halfw.T, corner_chunk)
     return i7, i5, i3, diffs.T
 
 
@@ -217,21 +225,17 @@ def genz_malik_eval_soa_tables_ref(
 # --- the redistribution round (csrc/redistribute_round.cu) ---------------------
 
 
-def round_pack_ref(counts, rank: int, shift: int, cap: int, limit: int, centers, halfw):
-    """The pack kernel's plain version: rank ``rank``'s ``(plan, payload)``
-    in a round at ring distance ``shift``, from every rank's live count
-    ``counts`` (n,) int64 and the rank's ``centers`` and ``halfw`` (C, d).
+def _as_counts(counts) -> torch.Tensor:
+    return counts if isinstance(counts, torch.Tensor) else torch.stack(list(counts))
 
-    The fair share is ``[total // n, ceil(total / n)]`` and each rank's
+
+def _round_plan(counts, rank: int, shift: int, cap: int, limit: int):
+    """Rank ``rank``'s ``(n_send, n_recv)`` from every rank's count ``(n,)``:
+    the fair share is ``[total // n, ceil(total / n)]`` and each rank's
     stats ``[n_rows, free, surplus, deficit]``; the rank sends to its
     receiver ``rank + shift`` and receives from its donor ``rank - shift``
-    (``redistribution.round_counts`` on host integers).  ``plan`` is
-    ``(n_send, n_recv, base, base)``; its last entry is the splice's.  The
-    payload's ``min(cap, C)`` rows are read at ``(base + j) mod C``, where the
-    reference's clamped positions are, and zeroed past ``n_send``.
-    """
+    (``redistribution.round_counts`` on host integers)."""
     n = counts.shape[0]
-    C = centers.shape[0]
     total = counts.sum()
     fair_lo, fair_hi = total // n, -(-total // n)
 
@@ -244,37 +248,74 @@ def round_pack_ref(counts, rank: int, shift: int, cap: int, limit: int, centers,
     room = torch.stack([down, own])[:, 1::2].amin(1)
     offer = torch.stack([own, up])[:, 2]
     n_send, n_recv = torch.minimum(offer, room).clamp(max=cap).unbind()
-    base = counts[rank] - n_send
-    j = torch.arange(min(cap, C), device=centers.device)
-    src = (base + j) % C
-    coords = torch.cat([centers.index_select(0, src), halfw.index_select(0, src)], 1)
-    payload = torch.where((j < n_send)[:, None], coords, 0.0)
-    return torch.stack([n_send, n_recv, base, base]), payload
+    if counts.device.type == "cpu":
+        # what lets the kernel run every rank of a device in one launch
+        # without a barrier: a rank never both sends and receives.  Checked
+        # in the operation itself (it raises here), not by a host read.
+        torch._assert_async(~((n_send > 0) & (n_recv > 0)),
+                            f"rank {rank} both sends and receives in one round")
+    return n_send, n_recv
 
 
-def round_splice_ref(plan, incoming, centers, halfw, est, err, axis, active, fresh):
-    """The splice kernel's plain version: the received block ``incoming``
-    spliced in after the rank's rows, in place, and the sent window retired.
+def round_ref(counts, ranks, shift: int, cap: int, limit: int, stores, sources):
+    """The round kernel's plain version, for the ranks ``ranks`` (ring
+    indices) of one device at ring distance ``shift``, in place.
 
-    Both are rows ``base + j`` (a rank sends or receives, never both),
-    written at ``(base + j) mod C``: distinct positions, so the write is
-    deterministic.  A row neither sent nor received gets its old value back,
-    and a received row past the store is dropped.  Returns the rank's count
-    after the round and the rows it sent.
+    ``counts`` are every rank's live count (n int64 scalars, or one ``(n,)``
+    tensor); ``stores`` each rank's ``(centers, halfw, est, err, axis,
+    active, fresh)``; ``sources`` per rank its donor's index in ``stores``
+    (the donor's centres and half-widths read at rows ``(count_donor -
+    n_recv + j) mod C``), or a staged ``(min(cap, C), 2d)`` block
+    (:func:`round_pack_ref`), read at row j.
+    The received block goes in after the rank's rows and the sent window is
+    retired: both are rows ``base + j``, written at ``(base + j) mod C``,
+    distinct positions, so the write is deterministic; a row neither sent
+    nor received gets its old value back, and a received row past the store
+    is dropped.  Returns each rank's count after the round and the rows it
+    sent, int64 scalars viewing one ``(len(ranks), 2)`` tensor.
     """
-    C, d = centers.shape
-    n_send, n_recv, base = plan[0], plan[1], plan[2]
-    j = torch.arange(incoming.shape[0], device=centers.device)
-    dest = (base + j) % C
-    kept = torch.minimum(n_recv, C - base)
-    recv = j < kept
-    coords = torch.cat([centers.index_select(0, dest), halfw.index_select(0, dest)], 1)
-    new = torch.where(recv[:, None], incoming, coords)
-    centers.index_copy_(0, dest, new[:, :d])
-    halfw.index_copy_(0, dest, new[:, d:])
-    for t in (est, err, axis):
-        t.index_copy_(0, dest, t.index_select(0, dest).masked_fill(recv, 0))
-    keep = ~(j < n_send)
-    for t in (active, fresh):
-        t.index_copy_(0, dest, t.index_select(0, dest) & keep | recv)
-    return base + kept, n_send
+    counts = _as_counts(counts)
+    n = counts.shape[0]
+    rows = []
+    for r, (centers, halfw, est, err, axis, active, fresh), source in zip(ranks, stores, sources):
+        C, d = centers.shape
+        n_send, n_recv = _round_plan(counts, r, shift, cap, limit)
+        base = counts[r] - n_send
+        j = torch.arange(min(cap, C), device=centers.device)
+        dest = (base + j) % C
+        kept = torch.minimum(n_recv, C - base)
+        recv = j < kept
+        if isinstance(source, torch.Tensor):
+            incoming = source
+        else:  # the donor sends the n_recv rows at the tail of its count
+            src = (counts[(r - shift) % n] - n_recv + j) % C
+            donor = stores[source]
+            incoming = torch.cat([donor[0].index_select(0, src), donor[1].index_select(0, src)], 1)
+        coords = torch.cat([centers.index_select(0, dest), halfw.index_select(0, dest)], 1)
+        new = torch.where(recv[:, None], incoming, coords)
+        centers.index_copy_(0, dest, new[:, :d])
+        halfw.index_copy_(0, dest, new[:, d:])
+        for t in (est, err, axis):
+            t.index_copy_(0, dest, t.index_select(0, dest).masked_fill(recv, 0))
+        keep = ~(j < n_send)
+        for t in (active, fresh):
+            t.index_copy_(0, dest, t.index_select(0, dest) & keep | recv)
+        rows.append(torch.stack([base + kept, n_send]))
+    vals = torch.stack(rows).flatten().unbind()
+    return list(vals[0::2]), list(vals[1::2])
+
+
+def round_pack_ref(counts, ranks, shift: int, cap: int, limit: int, stores, blocks) -> None:
+    """The pack kernel's plain version: each donor's block ``(min(cap, C),
+    2d)``, written in place.  ``stores`` are the donors' ``(centers,
+    halfw)``; row j of a block holds the donor's row ``(base + j) mod C``,
+    where the reference's clamped positions are, for j below the rows it
+    sends, and zeros after."""
+    counts = _as_counts(counts)
+    for r, (centers, halfw), block in zip(ranks, stores, blocks):
+        C = centers.shape[0]
+        n_send, _ = _round_plan(counts, r, shift, cap, limit)
+        j = torch.arange(min(cap, C), device=centers.device)
+        src = (counts[r] - n_send + j) % C
+        coords = torch.cat([centers.index_select(0, src), halfw.index_select(0, src)], 1)
+        block.copy_(torch.where((j < n_send)[:, None], coords, 0.0))

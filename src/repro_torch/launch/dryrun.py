@@ -472,8 +472,13 @@ MICROBATCH_DEFAULTS = {
 }
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool, *, device="cuda", **kw) -> dict:
+def run_cell(arch: str, shape_name: str, multi_pod: bool, *, device="cuda",
+             n_layers: int | None = None, **kw) -> dict:
+    """One cell's record; ``n_layers`` cuts the architecture's depth (its
+    widths stay the published ones)."""
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     shape = SHAPES[shape_name]
     skip = cell_status(cfg, shape)
     mesh_name = "2x16x16" if multi_pod else "16x16"

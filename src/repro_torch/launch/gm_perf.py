@@ -11,6 +11,7 @@
     python src/repro_torch/launch/gm_perf.py sums [--kernel-only]
     python src/repro_torch/launch/gm_perf.py sums-ablate
     python src/repro_torch/launch/gm_perf.py vegas
+    python src/repro_torch/launch/gm_perf.py round [--reps 200]
 
 ``time`` times the kernel wrapper (``kernels.genz_malik_eval.genz_malik_eval_soa``)
 with CUDA events on SoA inputs, for each case (integrand:d), batch size and
@@ -53,6 +54,13 @@ put first on ``PYTHONPATH``.  ``interleave`` runs ``profile`` of several
 checkouts in turns on one card (:func:`cmd_interleave`): unpack each
 earlier tree's ``src`` under the gitignored ``build/`` first, e.g.
 ``git archive a2d6aa4 src | tar -x -C build/trees/a2d6aa4``.
+
+``round`` times the whole redistribution round as the distributed driver
+calls it, on four ranks of one card at ``chip_smoke.py`` phase 6's shape
+(:data:`ROUND_TIMED`, :func:`time_round_call`): ms a round by CUDA events,
+the host's seconds, the device time and operations a round by name.  It
+uses only names the package has had since the round's first port, so it
+times another checkout put first on ``PYTHONPATH``.
 
 ``sums`` times the VEGAS sums kernel (``kernels.vegas_sums.vegas_sums``) at
 the three shapes of :data:`SUMS_TIMED`: CUDA events per call, its chunk
@@ -388,16 +396,17 @@ def time_sums(w, y, cum, nb, shards, reps=20, kernel_only=False):
 
 
 # The redistribution round's kernels against their plain versions
-# (chip_smoke.py phase 6a, tests/test_torch_gpu.py): every shift of
+# (chip_smoke.py phase 3b, tests/test_torch_gpu.py): every shift of
 # make_schedule(n) at these rank counts, both float types, these d, in
-# stores of ROUND_C rows, at a message cap below ROUND_C and one above.
+# stores of ROUND_C rows, at a message cap below ROUND_C and one above; each
+# case with every donor read in place and with every other donor staged.
 ROUND_RANKS = (2, 3, 4, 8)
 ROUND_DIMS = (3, 5, 8)
 ROUND_C = 64
 ROUND_CAPS = (8, 100)
 # timed at phase 6's shape: four ranks, message cap 512, 2^22 rows a rank
 ROUND_TIMED = dict(ranks=4, cap=512, capacity=1 << 22, dims=(5, 8))
-# a store's per-row fields, in round_splice's order after plan and incoming
+# a store's per-row fields, in the order the round takes them
 ROUND_FIELDS = ("centers", "halfw", "est", "err", "axis", "active", "fresh")
 
 
@@ -447,128 +456,225 @@ def round_grid():
                         yield n, shift, dtype, d, cap, counts.tolist(), seed
 
 
-def round_vs_plain(n, shift, dtype, d, cap, counts, seed, C=ROUND_C, device="cuda"):
-    """One round of ``n`` ranks through the two kernels on ``device`` and
-    through their plain versions on the CPU, from the same stores: each
-    rank's plan and payload after pack, and its store, count and rows sent
-    after splice, bit for bit.  Returns the largest absolute difference of
-    the payloads and stores (NaN against NaN counts 0) and the rows moved."""
-    from repro_torch.core.redistribution import ring_perms
+def round_vs_plain(n, shift, dtype, d, cap, counts, seed, C=ROUND_C, device="cuda",
+                   staged=False):
+    """One round of ``n`` ranks through the kernels on ``device`` and
+    through their plain versions on the CPU, from the same stores, all in
+    one launch: each rank's store, count after the round and rows sent, bit
+    for bit.  ``staged``: every other donor (the odd ranks) is first packed
+    into a block (one pack launch, the blocks checked bit for bit too), and
+    its receiver reads the block, as a receiver on another device would.
+    Returns the largest absolute difference of the blocks and stores (NaN
+    against NaN counts 0) and the rows moved."""
     from repro_torch.kernels import redistribute_round as rk
-    from repro_torch.kernels.ref import round_pack_ref, round_splice_ref
+    from repro_torch.kernels.ref import round_pack_ref, round_ref
 
     limit = 3 * C // 4
+    P = min(cap, C)
     plain = round_stores(counts, C, d, dtype, seed)
-    card = [{k: v.to(device) for k, v in st.items()} for st in plain]
-    counts_cpu = torch.tensor(counts, dtype=torch.int64)
-    counts_card = counts_cpu.to(device)
+    card = [{k: v.to(device, copy=True) for k, v in st.items()} for st in plain]
+    counts_cpu = [torch.tensor(c, dtype=torch.int64) for c in counts]
+    counts_card = [c.to(device, copy=True) for c in counts_cpu]
     worst = [0.0]
 
     def same(got, want, what):
         got = got.cpu()
         assert got.dtype == want.dtype and got.shape == want.shape, (what, got.shape, want.shape)
         ok = bits_equal(got, want) if got.is_floating_point() else torch.equal(got, want)
-        assert ok, (what, n, shift, dtype, d, cap, counts)
+        assert ok, (what, n, shift, dtype, d, cap, counts, staged)
         if got.is_floating_point():
             both = torch.isnan(got) & torch.isnan(want)
             diff = torch.where(both, 0.0, got.double() - want.double()).abs()
             worst[0] = max(worst[0], float(diff.max()) if diff.numel() else 0.0)
 
-    packed = []
+    def coords(st):
+        return st["centers"], st["halfw"]
+
+    kernels = rk.RoundKernels()
+    donors = list(range(1, n, 2)) if staged else []
+    # NaN where nothing is written, so that a row the pack missed shows
+    blocks_card = {u: torch.full((P, 2 * d), float("nan"), dtype=dtype, device=device)
+                   for u in donors}
+    blocks_plain = {u: torch.full((P, 2 * d), float("nan"), dtype=dtype) for u in donors}
+    if donors:
+        kernels.pack(counts_card, donors, shift, cap, limit, [coords(card[u]) for u in donors],
+                     [blocks_card[u] for u in donors])
+        round_pack_ref(counts_cpu, donors, shift, cap, limit, [coords(plain[u]) for u in donors],
+                       [blocks_plain[u] for u in donors])
+        for u in donors:
+            same(blocks_card[u], blocks_plain[u], f"rank {u} block")
+
+    def sources(blocks):  # the donor's block, or its index among the stores
+        return [blocks.get((r - shift) % n, (r - shift) % n) for r in range(n)]
+
+    after_k, sent_k = kernels.round(counts_card, range(n), shift, cap, limit,
+                                    [tuple(st[f] for f in ROUND_FIELDS) for st in card],
+                                    sources(blocks_card))
+    after_p, sent_p = round_ref(counts_cpu, range(n), shift, cap, limit,
+                                [tuple(st[f] for f in ROUND_FIELDS) for st in plain],
+                                sources(blocks_plain))
+    same(torch.stack(after_k + sent_k), torch.stack(after_p + sent_p), "counts")
     for r in range(n):
-        plan_k, pay_k = rk.round_pack(counts_card, r, shift, cap, limit, card[r]["centers"],
-                                      card[r]["halfw"])
-        plan_p, pay_p = round_pack_ref(counts_cpu, r, shift, cap, limit, plain[r]["centers"],
-                                       plain[r]["halfw"])
-        same(plan_k[:3], plan_p[:3], f"rank {r} plan")
-        same(pay_k, pay_p, f"rank {r} payload")
-        packed.append((plan_k, pay_k, plan_p, pay_p))
-    _, up = ring_perms(n, shift)
-    moved = 0
-    for src, dst in up:
-        plan_k, _, plan_p, _ = packed[dst]
-        after_k, sent_k = rk.round_splice(plan_k, packed[src][1],
-                                          *(card[dst][f] for f in ROUND_FIELDS))
-        after_p, sent_p = round_splice_ref(plan_p, packed[src][3],
-                                           *(plain[dst][f] for f in ROUND_FIELDS))
-        same(torch.stack([after_k, sent_k]), torch.stack([after_p, sent_p]), f"rank {dst} counts")
         for f in ROUND_FIELDS:
-            same(card[dst][f], plain[dst][f], f"rank {dst} {f}")
-        moved += int(sent_p)
-    return worst[0], moved
+            same(card[r][f], plain[r][f], f"rank {r} {f}")
+    return worst[0], sum(int(k) for k in sent_p)
+
+
+def round_case(d, dtype=torch.float64, device="cuda"):
+    """Four ranks on one device at :data:`ROUND_TIMED`'s shape: ``(ranks,
+    states, counts)``, the counts C/2, C/8, C/4, C/4, so that at shift 1
+    rank 0 sends a full message to rank 1 and no other rank moves."""
+    from repro_torch.core.ranks import Ranks
+    from repro_torch.core.region_store import RegionState
+
+    n, C = ROUND_TIMED["ranks"], ROUND_TIMED["capacity"]
+    counts = [C // 2, C // 8, C // 4, C // 4]
+    gen = torch.Generator(device=device).manual_seed(d)
+
+    def scalar(dt):
+        return torch.zeros((), dtype=dt, device=device)
+
+    states = []
+    for k in counts:
+        live = torch.arange(C, device=device) < k
+        states.append(RegionState(
+            centers=torch.rand((C, d), generator=gen, dtype=dtype, device=device),
+            halfw=torch.rand((C, d), generator=gen, dtype=dtype, device=device) * 0.1,
+            est=torch.rand(C, generator=gen, dtype=dtype, device=device) * live,
+            err=torch.rand(C, generator=gen, dtype=dtype, device=device) * live,
+            axis=torch.randint(0, d, (C,), generator=gen, device=device, dtype=torch.int32),
+            active=live, fresh=live & (torch.rand(C, generator=gen, device=device) < 0.5),
+            fin_integral=scalar(dtype), fin_error=scalar(dtype), n_evals=scalar(dtype),
+            it=scalar(torch.int32), overflowed=scalar(torch.bool)))
+    rows = [torch.tensor(k, dtype=torch.int64, device=device) for k in counts]
+    return Ranks([device] * n), states, rows
+
+
+def time_round_call(ranks, states, rows, reps=200):
+    """The whole round as the distributed driver calls it
+    (``redistribution.redistribute``, shift 1) on :func:`round_case`'s
+    states: ms a round by CUDA events over ``reps`` rounds (the host's
+    enqueue: the round is host-bound), the host's own seconds for the same
+    enqueue, and from ``torch.profiler`` the device time a round and the
+    device operations (kernels, copies) a round, by name.  It uses only
+    names the package has had since the round's first port, so it times
+    another checkout put first on ``PYTHONPATH`` (``round``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.redistribution import make_schedule, redistribute
+
+    n, cap, C = ROUND_TIMED["ranks"], ROUND_TIMED["cap"], ROUND_TIMED["capacity"]
+    schedule = make_schedule(n)
+
+    def one():
+        return redistribute(states, ranks, schedule=schedule, cap=cap, limit=3 * C // 4, it=0,
+                            n_rows=rows)
+
+    ms = time_ms(one, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            one()
+        torch.cuda.synchronize()
+    device = [evt for evt in prof.key_averages() if evt.self_device_time_total > 0]
+    return dict(ms=ms, host_ms=host_ms,
+                device_us=sum(evt.self_device_time_total for evt in device) / reps,
+                device_ops=sum(evt.count for evt in device) / reps,
+                device_us_by_name={evt.key: evt.self_device_time_total / reps for evt in device})
+
+
+def _profiled_us(fn, reps, name):
+    """Device µs a call of ``fn`` in the kernels whose name holds ``name``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(evt.self_device_time_total for evt in prof.key_averages()
+               if name in evt.key) / reps
 
 
 def time_round(d, dtype=torch.float64, reps=200):
-    """The round's two kernels at phase 6's shape (:data:`ROUND_TIMED`), rank
-    0 of four sending a full message to rank 1 (shift 1): pack on rank 0,
-    splice on rank 1, each first checked bit for bit against its plain
-    version on the card (on copies of the stores), then timed: ms per call
-    (CUDA events over ``reps`` calls, as the main path calls it: the
-    wrapper's allocations and launch), the kernel's own device time
-    (torch.profiler), the plain version's ms per call on the card, and the
-    byte bound: the rows and flags this round moves, read once and written
-    once, at the HBM rate (the kernels do no floating-point work)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The round at phase 6's shape (:data:`ROUND_TIMED`, four ranks on one
+    card, rank 0 sending ``cap`` rows to rank 1): one round first checked
+    bit for bit against its plain version on CPU copies of the stores, then
+    timed (:func:`time_round_call`), beside the plain version on the card
+    (``round_ref``, all four ranks) and the byte bound: the counts and the
+    rows this round moves, each read once and written once, at the HBM rate
+    (the kernels do no floating-point work).  Also the pack alone, on rank
+    0's block (it runs only where a receiver lives on another device), with
+    its plain version and bound, and the launch floor: an empty kernel's ms
+    a launch (CUDA events) and device µs (torch.profiler) on the same
+    stream."""
+    from repro_torch.core.redistribution import redistribute, round_counts
     from repro_torch.kernels import redistribute_round as rk
-    from repro_torch.kernels.ref import round_pack_ref, round_splice_ref
+    from repro_torch.kernels.ref import round_pack_ref, round_ref
 
     n, cap, C = ROUND_TIMED["ranks"], ROUND_TIMED["cap"], ROUND_TIMED["capacity"]
     limit = 3 * C // 4
-    counts = torch.tensor([C // 2, C // 8, C // 4, C // 4], device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(d)
-    stores = []
-    for k in counts.tolist()[:2]:
-        live = torch.arange(C, device="cuda") < k
-        stores.append(dict(
-            centers=torch.rand((C, d), generator=gen, dtype=dtype, device="cuda"),
-            halfw=torch.rand((C, d), generator=gen, dtype=dtype, device="cuda") * 0.1,
-            est=torch.rand(C, generator=gen, dtype=dtype, device="cuda") * live,
-            err=torch.rand(C, generator=gen, dtype=dtype, device="cuda") * live,
-            axis=torch.randint(0, d, (C,), generator=gen, device="cuda", dtype=torch.int32),
-            active=live, fresh=live & (torch.rand(C, generator=gen, device="cuda") < 0.5)))
-    donor, receiver = stores
-    pack = lambda: rk.round_pack(counts, 0, 1, cap, limit, donor["centers"], donor["halfw"])  # noqa: E731
-    plain_pack = lambda: round_pack_ref(counts, 0, 1, cap, limit, donor["centers"], donor["halfw"])  # noqa: E731
-    (plan0, payload), (plan0_p, payload_p) = pack(), plain_pack()
-    assert torch.equal(plan0[:3], plan0_p[:3]) and bits_equal(payload, payload_p)
-    plan1, _ = rk.round_pack(counts, 1, 1, cap, limit, receiver["centers"], receiver["halfw"])
-    plan1_p, _ = round_pack_ref(counts, 1, 1, cap, limit, receiver["centers"],
-                                receiver["halfw"])
-    n_send, n_recv, base = plan0[0].item(), plan1[1].item(), plan1[2].item()
-    assert n_send == n_recv == cap, (n_send, n_recv)
-    copy = {k: v.clone() for k, v in receiver.items()}
-    splice = lambda: rk.round_splice(plan1, payload, *(receiver[f] for f in ROUND_FIELDS))  # noqa: E731
-    plain_splice = lambda: round_splice_ref(plan1_p, payload_p, *(copy[f] for f in ROUND_FIELDS))  # noqa: E731
-    got, want = splice(), plain_splice()
-    assert torch.equal(torch.stack(got), torch.stack(want))
-    assert all((bits_equal if receiver[f].is_floating_point() else torch.equal)(receiver[f], copy[f])
-               for f in ROUND_FIELDS)
-    # a second splice writes the same values: time the plain version on the
-    # receiver's store itself
-    plain_splice = lambda: round_splice_ref(plan1_p, payload_p, *(receiver[f] for f in ROUND_FIELDS))  # noqa: E731
-    del copy
-    size = payload.element_size()
-    kept = min(n_recv, C - base)
-    moves = {  # bytes read once and written once
-        "pack": 8 * n + n_send * 2 * d * size + cap * 2 * d * size + 3 * 8,
-        "splice": 3 * 8 + kept * 2 * d * size + 2 * cap + kept * (2 * d * size + 2 * size + 4)
-                  + 2 * cap + 8,
-    }
-    out = {}
-    for name, fn, plain in (("pack", pack, plain_pack), ("splice", splice, plain_splice)):
-        ms = time_ms(fn, reps)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernel_ms = sum(evt.self_device_time_total for evt in prof.key_averages()
-                        if f"redistribute_{name}" in evt.key) / 1e3 / reps
-        out[name] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=time_ms(plain, reps // 4),
-                         bytes=moves[name], bound_ms=moves[name] / PEAK_HBM_BYTES * 1e3,
-                         bound_by="bytes", library_ms=None)
+    P = min(cap, C)
+    ranks, states, rows = round_case(d, dtype)
+    counts = [int(k) for k in rows]
+    n_send, n_recv = round_counts(counts, 1, cap, limit)
+    assert n_send == [cap, 0, 0, 0] and n_recv == [0, cap, 0, 0], (n_send, n_recv)
+    stores = [tuple(getattr(st, f) for f in ROUND_FIELDS) for st in states]
+    plain = [tuple(t.cpu() for t in st) for st in stores]
+    before = rk.launch_count("round")
+    _, after, sent = redistribute(states, ranks, schedule=(1,), cap=cap, limit=limit, it=0,
+                                  n_rows=rows)
+    assert rk.launch_count("round") == before + 1
+    sources = [(r - 1) % n for r in range(n)]  # each rank's donor
+    after_p, sent_p = round_ref([r.cpu() for r in rows], range(n), 1, cap, limit, plain, sources)
+    assert torch.equal(torch.stack(after + sent).cpu(), torch.stack(after_p + sent_p))
+    for st, st_p in zip(stores, plain):
+        for f, t, t_p in zip(ROUND_FIELDS, st, st_p):
+            assert (bits_equal if t.is_floating_point() else torch.equal)(t.cpu(), t_p), f
+    del plain
+    whole = time_round_call(ranks, states, rows, reps)
+    # repeated rounds on the same counts write the same values
+    plain_ms = time_ms(lambda: round_ref(rows, range(n), 1, cap, limit, stores, sources),
+                       reps // 4)
+    size = states[0].centers.element_size()
+    kept = min(n_recv[1], C - counts[1])
+    moves = (8 * n + 16 * n  # the counts read, (after, sent) written
+             + kept * 2 * d * size * 2  # the rows received, read and written
+             + kept * (2 * size + 4 + 2)  # their est, err, axis, active, fresh
+             + n_send[0] * 2)  # the sent rows' active and fresh
+    kernel_us = sum(us for name, us in whole["device_us_by_name"].items()
+                    if "redistribute_round" in name)
+    round_row = dict(ms=whole["ms"], host_ms=whole["host_ms"], kernel_ms=kernel_us / 1e3,
+                     device_ms=whole["device_us"] / 1e3, device_ops=whole["device_ops"],
+                     plain_ms=plain_ms, bytes=moves, bound_ms=moves / PEAK_HBM_BYTES * 1e3,
+                     bound_by="bytes", library_ms=None)
+
+    block = torch.empty((P, 2 * d), dtype=dtype, device="cuda")
+    kernels = rk.RoundKernels()
+    pack = lambda: kernels.pack(rows, [0], 1, cap, limit, [stores[0][:2]], [block])  # noqa: E731
+    pack()
+    block_p = torch.empty((P, 2 * d), dtype=dtype)
+    round_pack_ref([r.cpu() for r in rows], [0], 1, cap, limit,
+                   [tuple(t.cpu() for t in stores[0][:2])], [block_p])
+    assert bits_equal(block.cpu(), block_p)
+    pack_moves = 8 * n + n_send[0] * 2 * d * size + P * 2 * d * size
+    pack_row = dict(ms=time_ms(pack, reps), kernel_ms=_profiled_us(pack, reps, "redistribute_pack")
+                    / 1e3,
+                    plain_ms=time_ms(lambda: round_pack_ref(rows, [0], 1, cap, limit,
+                                                            [stores[0][:2]], [block]), reps // 4),
+                    bytes=pack_moves, bound_ms=pack_moves / PEAK_HBM_BYTES * 1e3,
+                    bound_by="bytes", library_ms=None)
+
+    floor = lambda: rk.launch_floor("cuda:0")  # noqa: E731
+    floor_row = dict(ms=time_ms(floor, reps), kernel_ms=_profiled_us(floor, reps, "launch_floor")
+                     / 1e3)
     return dict(d=d, dtype=str(dtype).split(".")[-1], ranks=n, cap=cap, capacity=C,
-                rows_moved=n_send, **out)
+                rows_moved=n_send[0], round=round_row, pack=pack_row, floor=floor_row,
+                device_us_by_name=whole["device_us_by_name"])
 
 
 def pool_thetas():
@@ -812,9 +918,11 @@ def cmd_ops(args):
                 round_kernels.reset_launch_count()
             with Count():
                 res = dist_mod.integrate_distributed(cfg, devices=devices)
-            launches = 0
-            if round_kernels is not None:
-                launches = round_kernels.launch_count("pack") + round_kernels.launch_count("splice")
+            # this tree's kernels; a tree from before the round's redesign had a
+            # pack and a splice a rank
+            names = getattr(round_kernels, "KERNELS", ("pack", "splice")) if round_kernels else ()
+            by_kernel = {k: round_kernels.launch_count(k) for k in names}
+            launches = sum(by_kernel.values())
             counts["round"] += launches
             run = 4 * (res.iterations + getattr(res, "discarded", 0))
             per = {k: v / run for k, v in counts.items() if k != "rule"}
@@ -823,12 +931,28 @@ def cmd_ops(args):
                                   discarded=getattr(res, "discarded", None),
                                   ops_per_rank_iteration=sum(per.values()), by_phase=per,
                                   round_kernel_launches=launches / run,
+                                  round_launches_by_kernel={k: v / run
+                                                            for k, v in by_kernel.items()},
                                   package=dist_mod.__file__,
                                   **({"card": card()} if args.device == "cuda" else {}))),
                   flush=True)
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
+
+
+def cmd_round(args):
+    """The whole round at ROUND_TIMED's shapes (:func:`time_round_call`),
+    one JSON line a d; runs against another checkout too."""
+    import repro_torch
+
+    smi = card()
+    for d in ROUND_TIMED["dims"]:
+        row = time_round_call(*round_case(d), reps=args.reps)
+        print(json.dumps(dict(d=d, ranks=ROUND_TIMED["ranks"], cap=ROUND_TIMED["cap"],
+                              capacity=ROUND_TIMED["capacity"], **row,
+                              package=repro_torch.__file__, card=smi)), flush=True)
+        torch.cuda.empty_cache()
 
 
 def cmd_sums(args):
@@ -1086,6 +1210,8 @@ def main(argv=None):
                     help="the kernel's times alone (no plain version, no index_add_)")
     sub.add_parser("sums-ablate", help="vegas_sums whole and cut (SUMS_ABLATIONS), in turns")
     sub.add_parser("vegas", help="walls and estimate bits of phases 10a and 11a")
+    r = sub.add_parser("round", help="the whole redistribution round at ROUND_TIMED's shapes")
+    r.add_argument("--reps", type=int, default=200)
     o = sub.add_parser("ops", help="torch operations per rank and iteration of the "
                                    "distributed driver, by phase (CPU)")
     o.add_argument("--sync-every", type=int, default=None)
@@ -1116,7 +1242,7 @@ def main(argv=None):
         raise SystemExit("gm_perf: no CUDA device; this tool measures the card only")
     {"time": cmd_time, "ptxas": cmd_ptxas, "profile": cmd_profile, "sums": cmd_sums,
      "sums-ablate": cmd_sums_ablate, "vegas": cmd_vegas, "ops": cmd_ops,
-     "interleave": cmd_interleave}[args.cmd](args)
+     "interleave": cmd_interleave, "round": cmd_round}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -211,3 +211,19 @@ def test_run_cell_record_and_cli(mesh22, tmp_path, monkeypatch, capsys):
     assert "[skip existing] mamba2-370m__decode_32k__single" in capsys.readouterr().out
     fail = tdry.run_cell("deepseek-7b", "train_4k", False, device="cpu", microbatches=3)
     assert fail["status"] == "fail" and "microbatches" in fail["error"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m"])
+def test_run_cell_cuts_depth(mesh22, monkeypatch, arch):
+    """run_cell's n_layers traces the first layers only: one period of the
+    layer pattern more costs one period more FLOPs, at the same widths."""
+    monkeypatch.setattr(tdry, "get_config", lambda arch: get_smoke_config(arch))
+    monkeypatch.setattr(tdry, "SHAPES", {s.name: s for s in SMALL})
+    monkeypatch.setattr(tdry, "make_production_mesh", lambda multi_pod, device_type: (
+        tdry.fake_mesh((2, 2, 2) if multi_pod else (2, 2),
+                       ("pod", "data", "model") if multi_pod else ("data", "model"), device_type)))
+    monkeypatch.setattr(tdry, "fake_world", lambda world: None)
+    flops = [tdry.run_cell(arch, "train_4k", False, device="cpu", microbatches=2,
+                           n_layers=n)["flops"] for n in (1, 2, 3)]
+    assert 0 < flops[0] < flops[1] < flops[2], flops
+    assert flops[2] - flops[1] == pytest.approx(flops[1] - flops[0], rel=1e-9), flops

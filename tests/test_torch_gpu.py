@@ -145,28 +145,33 @@ def test_user_callable_refused_on_card(cuda):
 
 
 def test_round_kernels_match_plain_version(cuda):
-    """The redistribution round's pack and splice kernels against their
-    plain versions on the CPU, bit for bit, over chip_smoke.py phase 3b's
-    grid (gm_perf.round_grid)."""
+    """The redistribution round's kernels against their plain versions on
+    the CPU, bit for bit, over chip_smoke.py phase 3b's grid
+    (gm_perf.round_grid): each case with every donor read in place (one
+    round launch), then with every other donor packed into a block and read
+    from it (one pack and one round launch)."""
     from repro_torch.kernels import redistribute_round as rk
     from repro_torch.launch.gm_perf import round_grid, round_vs_plain
 
-    before = rk.launch_count("pack")
+    before = {k: rk.launch_count(k) for k in rk.KERNELS}
     moved = 0
     cases = list(round_grid())
     for case in cases:
-        err, rows = round_vs_plain(*case)
-        assert err == 0.0, case
-        moved += rows
+        for staged in (False, True):
+            err, rows = round_vs_plain(*case, staged=staged)
+            assert err == 0.0, (case, staged)
+            moved += rows
     assert moved > 0
-    assert rk.launch_count("pack") - before == sum(case[0] for case in cases)
+    assert rk.launch_count("round") - before["round"] == 2 * len(cases)
+    assert rk.launch_count("pack") - before["pack"] == len(cases)
 
 
 @pytest.mark.parametrize("sync_every", [1, 4])
 def test_distributed_on_card_matches_cpu(cuda, sync_every):
     """Four ranks on the card (the round's kernels) against four CPU ranks
     (their plain versions): the same iterations, evaluations, history and
-    regions moved; one pack and one splice a rank a round."""
+    regions moved; one round launch a round (the four ranks share the
+    card), and no pack."""
     from repro_torch.core.distributed import integrate_distributed
     from repro_torch.kernels import redistribute_round as rk
 
@@ -174,12 +179,12 @@ def test_distributed_on_card_matches_cpu(cuda, sync_every):
                            sync_every=sync_every)
     rk.reset_launch_count()
     on_card = integrate_distributed(cfg, devices=[cuda] * 4)
-    packs = rk.launch_count("pack")
+    rounds, packs = rk.launch_count("round"), rk.launch_count("pack")
     on_cpu = integrate_distributed(cfg, devices=["cpu"] * 4)
     assert on_card.status == on_cpu.status == "converged"
     assert (on_card.iterations, on_card.n_evals, on_card.moved) == (
         on_cpu.iterations, on_cpu.n_evals, on_cpu.moved)
     assert [h[3] for h in on_card.history] == [h[3] for h in on_cpu.history]
     assert on_card.moved > 0
-    assert 4 * on_card.iterations <= packs == rk.launch_count("splice") <= 4 * (
-        on_card.iterations + on_card.discarded)
+    assert on_card.iterations <= rounds <= on_card.iterations + on_card.discarded
+    assert packs == 0

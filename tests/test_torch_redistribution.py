@@ -20,6 +20,7 @@ from repro.core.region_store import RegionState as JState
 from repro_torch.core import redistribution as tred
 from repro_torch.core.ranks import Ranks, cuda_devices
 from repro_torch.core.region_store import FIELDS
+from repro_torch.kernels.redistribute_round import FIELDS as ROUND_FIELDS
 
 _C = 64  # store capacity per rank
 _D = 2
@@ -164,68 +165,171 @@ def test_round_work_does_not_depend_on_counts():
             self.ops.append((str(func), shapes))
             return out
 
-    traces = []
-    for counts in ([40, 0, 5, 10], [12, 12, 12, 12], [0, 0, 0, 0], [48, 48, 0, 64]):
-        ranks = Ranks(["cpu"] * 4)
-        states = ranks.states_from_stacked(_stacked_arrays(4, counts, 0, 3))
-        with Trace() as trace:
-            tred.redistribute(states, ranks, schedule=tred.make_schedule(4), cap=_CAP,
-                              limit=_LIMIT, it=0, n_rows=[st.active.sum() for st in states])
-        traces.append(trace.ops)
-    assert all(t == traces[0] for t in traces[1:])
+    for groups in (None, [[0, 1], [2, 3]]):  # one device; two, donors packed
+        traces = []
+        for counts in ([40, 0, 5, 10], [12, 12, 12, 12], [0, 0, 0, 0], [48, 48, 0, 64]):
+            ranks = Ranks(["cpu"] * 4)
+            states = ranks.states_from_stacked(_stacked_arrays(4, counts, 0, 3))
+            plan = tred.RoundPlan(ranks.devices, groups)
+            stores = [tuple(getattr(st, f) for f in ROUND_FIELDS) for st in states]
+            with Trace() as trace:
+                plan(ranks, stores, [st.active.sum() for st in states], 1, _CAP, _LIMIT)
+                tred.redistribute(states, ranks, schedule=tred.make_schedule(4), cap=_CAP,
+                                  limit=_LIMIT, it=0, n_rows=[st.active.sum() for st in states])
+            traces.append(trace.ops)
+        assert all(t == traces[0] for t in traces[1:])
 
 
 def test_cpu_states_take_the_plain_round(monkeypatch):
-    """On CPU states the round runs the kernels' plain versions, once per
-    rank each, and never a kernel wrapper; the wrappers themselves refuse
-    CPU tensors (the caller picks the plain version)."""
+    """On CPU states the round is one call of the round kernel's plain
+    version a round, for every rank (they share the CPU), with no pack and
+    never a kernel wrapper; the wrappers themselves refuse CPU tensors (the
+    caller picks the plain version)."""
     from repro_torch.kernels import redistribute_round as rk
 
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel wrapper ran on CPU states")
 
-    monkeypatch.setattr(rk, "round_pack", refuse)
-    monkeypatch.setattr(rk, "round_splice", refuse)
+    monkeypatch.setattr(rk.RoundKernels, "round", refuse)
+    monkeypatch.setattr(rk.RoundKernels, "pack", refuse)
     calls = []
-    for name in ("round_pack_ref", "round_splice_ref"):
+    for name in ("round_ref", "round_pack_ref"):
         plain = getattr(tred, name)
         monkeypatch.setattr(tred, name, lambda *a, plain=plain, name=name: calls.append(name)
                             or plain(*a))
     arrays = _stacked_arrays(4, [40, 0, 5, 10], 0, 3)
     got, after = _port_round(arrays, 4, 16, 48, 0)
     assert after == [27, 13, 5, 10]
-    assert sorted(calls) == ["round_pack_ref"] * 4 + ["round_splice_ref"] * 4
+    assert calls == ["round_ref"]
     monkeypatch.undo()
 
     states = Ranks(["cpu"] * 2).states_from_stacked(_stacked_arrays(2, [40, 0], 0, 3))
-    st = states[0]
-    counts = torch.tensor([40, 0])
+    stores = [tuple(getattr(st, f) for f in ROUND_FIELDS) for st in states]
+    counts = [torch.tensor(40), torch.tensor(0)]
+    sources = [1, 0]  # each rank's donor, by its index in stores
     with pytest.raises(ValueError, match="CUDA tensors"):
-        rk.round_pack(counts, 0, 1, _CAP, _LIMIT, st.centers, st.halfw)
-    plan, payload = tred.round_pack_ref(counts, 0, 1, _CAP, _LIMIT, st.centers, st.halfw)
+        rk.RoundKernels().round(counts, [0, 1], 1, _CAP, _LIMIT, stores, sources)
+    block = torch.zeros((_CAP, 2 * _D), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        rk.round_splice(plan, payload, st.centers, st.halfw, st.est, st.err, st.axis,
-                        st.active, st.fresh)
-    assert rk.launch_count("pack") == rk.launch_count("splice") == 0
+        rk.RoundKernels().pack(counts, [0], 1, _CAP, _LIMIT, [stores[0][:2]], [block])
+    assert rk.launch_count("round") == rk.launch_count("pack") == 0
 
 
 def test_plain_pack_and_splice_follow_the_plan():
-    """The plain versions' plan is ``round_counts``' arithmetic; the payload
-    holds the donor's tail rows and zeros after them; the splice returns
-    the count after the round and the rows sent."""
+    """The plain round's counts are ``round_counts``' arithmetic (the count
+    after the round and the rows sent); the plain pack's block holds the
+    donor's tail rows and zeros after them; the received rows are the
+    donor's tail, fresh, with est, err and axis cleared."""
     counts = [40, 0, 5, 10]
     arrays = _stacked_arrays(4, counts, 0, 3)
     states = Ranks(["cpu"] * 4).states_from_stacked(arrays)
+    stores = [tuple(getattr(st, f) for f in ROUND_FIELDS) for st in states]
     n_send, n_recv = tred.round_counts(counts, 1, 16, 48)
-    t = torch.tensor(counts)
-    for r, st in enumerate(states):
-        plan, payload = tred.round_pack_ref(t, r, 1, 16, 48, st.centers, st.halfw)
-        assert plan[:3].tolist() == [n_send[r], n_recv[r], counts[r] - n_send[r]]
-        assert payload.shape == (16, 2 * _D)
+    t = [torch.tensor(c) for c in counts]
+    blocks = [torch.full((16, 2 * _D), np.nan, dtype=torch.float64) for _ in range(4)]
+    tred.round_pack_ref(t, range(4), 1, 16, 48, [s[:2] for s in stores], blocks)
+    for r, block in enumerate(blocks):
         sent = slice(counts[r] - n_send[r], counts[r])
         want = np.concatenate([arrays["centers"][r][sent], arrays["halfw"][r][sent]], 1)
-        np.testing.assert_array_equal(payload[:n_send[r]].numpy(), want)
-        assert not payload[n_send[r]:].any()
+        np.testing.assert_array_equal(block[:n_send[r]].numpy(), want)
+        assert not block[n_send[r]:].any()
+    sources = [(r - 1) % 4 for r in range(4)]
+    after, moved = tred.round_ref(t, range(4), 1, 16, 48, stores, sources)
+    assert [int(k) for k in moved] == n_send == [13, 0, 0, 0]
+    assert [int(a) for a in after] == [c - k + m for c, k, m in zip(counts, n_send, n_recv)]
+    assert after[0].data_ptr() + 16 == after[1].data_ptr()  # views of one (4, 2) tensor
+    got = states[1]
+    np.testing.assert_array_equal(got.centers[:13].numpy(), arrays["centers"][0][27:40])
+    assert got.fresh[:13].all() and got.active[:13].all() and not got.est[:13].any()
+    assert not states[0].active[27:40].any() and not states[0].fresh[27:40].any()
+
+
+def _sources(stores, n, shift, staged, blocks):
+    """Each rank's receive source: its donor's index in the stores, or the
+    donor's staged block where the donor is in ``staged``."""
+    return [blocks[(r - shift) % n] if (r - shift) % n in staged else (r - shift) % n
+            for r in range(n)]
+
+
+@pytest.mark.parametrize("it", range(13))
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_staged_route_matches_local_route(n, it):
+    """The same round with every other donor packed into a block
+    (``round_pack_ref``) and read from it, against every donor read in
+    place: every field and count equal, and the blocks hold what the donors
+    sent."""
+    seed = 1000 * n + it
+    counts = _counts(n, seed)
+    arrays = _stacked_arrays(n, counts, it, seed)
+    shift = tred.round_shift(tred.make_schedule(n), it)
+    t = [torch.tensor(c) for c in counts]
+    results = []
+    for staged in (set(), set(range(1, n, 2))):
+        states = Ranks(["cpu"] * n).states_from_stacked(arrays)
+        stores = [tuple(getattr(st, f) for f in ROUND_FIELDS) for st in states]
+        blocks = {u: torch.zeros((_CAP, 2 * _D), dtype=torch.float64) for u in staged}
+        if staged:
+            tred.round_pack_ref(t, sorted(staged), shift, _CAP, _LIMIT,
+                                [stores[u][:2] for u in sorted(staged)],
+                                [blocks[u] for u in sorted(staged)])
+        after, moved = tred.round_ref(t, range(n), shift, _CAP, _LIMIT, stores,
+                                      _sources(stores, n, shift, staged, blocks))
+        results.append(({k: np.stack([getattr(s, k).numpy() for s in states]) for k in FIELDS},
+                        [int(a) for a in after], [int(m) for m in moved]))
+    (local, after, moved), (staged, after_s, moved_s) = results
+    assert (after, moved) == (after_s, moved_s)
+    for k in FIELDS:
+        np.testing.assert_array_equal(local[k], staged[k], err_msg=k)
+    ref = _jax_round(arrays, n, _CAP, _LIMIT)
+    for k in FIELDS:
+        np.testing.assert_array_equal(staged[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("it", range(13))
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_grouped_plan_matches_one_group(n, it):
+    """The driver's round with the ranks split into two groups (as over two
+    devices: the counts gathered and copied, the donors whose receiver is
+    in the other group packed, their blocks copied across), against the
+    one-group round: every field and count equal."""
+    seed = 1000 * n + it
+    arrays = _stacked_arrays(n, _counts(n, seed), it, seed)
+    ref, after_ref = _port_round(arrays, n, _CAP, _LIMIT, it)
+    ranks = Ranks(["cpu"] * n)
+    states = ranks.states_from_stacked(arrays)
+    plan = tred.RoundPlan(ranks.devices, groups=[list(range(0, n, 2)), list(range(1, n, 2))])
+    stores = [tuple(getattr(st, f) for f in ROUND_FIELDS) for st in states]
+    rows = [torch.tensor(int(c)) for c in arrays["active"].sum(axis=1)]
+    shift = tred.round_shift(tred.make_schedule(n), it)
+    after, moved = plan(ranks, stores, rows, shift, _CAP, _LIMIT)
+    assert [int(a) for a in after] == after_ref
+    assert [int(m) for m in moved] == tred.round_counts(
+        arrays["active"].sum(axis=1).tolist(), shift, _CAP, _LIMIT)[0]
+    for k in FIELDS:
+        np.testing.assert_array_equal(np.stack([getattr(s, k).numpy() for s in states]), ref[k],
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("cap", [8, 100])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_no_rank_both_sends_and_receives(n, cap):
+    """What lets one launch run every rank of a device with no barrier: in
+    ``round_counts``, at every shift, no rank sends and receives in the same
+    round, and each rank receives what its donor sends.  Random counts in a
+    store of 64 rows with an empty rank, one at the round's limit and one
+    full to the store, at a message cap below and above the store."""
+    rng = np.random.default_rng(100 * n + cap)
+    limit = 3 * _C // 4
+    for trial in range(300):
+        counts = rng.integers(0, _C + 1, n)
+        counts[trial % n] = 0
+        counts[(trial + 1) % n] = limit
+        if n > 2:
+            counts[(trial + 2) % n] = _C
+        for shift in range(1, n):
+            n_send, n_recv = tred.round_counts(counts.tolist(), shift, cap, limit)
+            assert not any(k > 0 and m > 0 for k, m in zip(n_send, n_recv)), (counts, shift)
+            assert n_recv == [n_send[(r - shift) % n] for r in range(n)]
 
 
 def test_round_reads_counts_when_not_given():
@@ -327,11 +431,7 @@ def test_ranks_collectives():
     vals = [torch.tensor([1.0, 5.0]), torch.tensor([2.0, 1.0]), torch.tensor([4.0, 3.0])]
     assert ranks.psum(vals).tolist() == [7.0, 9.0]
     assert ranks.pmax(vals).tolist() == [4.0, 5.0]
-    _, up = tred.ring_perms(3, 1)
-    out = ranks.ppermute(vals, up)
-    assert [t.tolist() for t in out] == [[4.0, 3.0], [1.0, 5.0], [2.0, 1.0]]
-    with pytest.raises(ValueError, match="does not cover"):
-        ranks.ppermute(vals, [(0, 1), (1, 0)])
+    assert ranks.gather(vals).tolist() == [[1.0, 5.0], [2.0, 1.0], [4.0, 3.0]]
     with pytest.raises(ValueError, match="at least one rank"):
         Ranks([])
 

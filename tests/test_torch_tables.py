@@ -145,3 +145,17 @@ def test_build_units_cover_every_type_and_dimension(monkeypatch, tmp_path):
             pairs.add(tuple(defines))
     assert len(pairs) == 2 * gm_kernel.MAX_D
     assert len({obj for _, obj in cmds}) == len(cmds)
+
+
+@pytest.mark.parametrize("chunk", [3, 64])
+@pytest.mark.parametrize("d", [3, 7])
+@pytest.mark.parametrize(
+    "name, per_lane",
+    [(n, False) for n in ENTRIES] + [(n, True) for n in sorted(integrands.PARAM_REGISTRY)],
+)
+def test_corner_chunk_keeps_the_plain_version(name, per_lane, d, chunk):
+    """Corners evaluated ``chunk`` at a time (theta rows tiled over them)
+    and added one at a time in order give one corner a call's results."""
+    entry, c, h, fn, rows = _case(name, d, 67, torch.float64, seed=d + chunk, per_lane=per_lane)
+    got = genz_malik_eval_soa_ref(fn, c, h, rows, corner_chunk=chunk)
+    _assert_equal(got, genz_malik_eval_soa_ref(fn, c, h, rows))
