@@ -63,15 +63,20 @@ Phases, each of which passes or raises (a failure exits nonzero):
    two bounds (see _bounds);
 9. the batch service (repro_torch.service) at a real size: gm_perf.py's
    SERVICE fleet (192 Gaussians at d = 5, float64, 64 slots of 2^19
-   regions, rel_tol 1e-3 / 1e-7 by request parity) on one rank, then on
-   four ranks (cuda:(r mod count), 16 slots each, ring migration).  Every
-   request ends converged, or evicted with status capacity where its
-   regions outgrow the store, within 10 max(error, budget) of its exact
-   value; the
-   two runs give the same results bit for bit; the first four requests
+   regions, rel_tol 1e-3 / 1e-7 by request parity, admit_every 1,
+   sync_every 4) on one rank, then on four ranks (cuda:(r mod count), 16
+   slots each, ring migration), then at admit_every 4 with sync_every 1
+   and 4 on one rank and on four.  Every request ends converged, or
+   evicted with status capacity where its regions outgrow the store,
+   within 10 max(error, budget) of its exact value; the runs at one
+   admit_every give the same results bit for bit; the first four requests
    equal integrate()'s on their theta and tolerance bit for bit; one GM
-   launch per rank per iteration with a live slot; migrations on four
-   ranks;
+   launch per rank per iteration with a live slot (eval_steps); one host
+   read per fused dispatch, and at most SERVICE_SYNC_EXTRA more
+   synchronising calls a run than dispatches; one wait on a landed row of
+   decisions per iteration; migrations on four ranks.  Each run's wall,
+   dispatches, iterations per dispatch, reads, waits and peak memory are
+   logged;
 10. the VEGAS backend (repro_torch.mc), gm_perf.py's VEGAS_CASES at a
    high-dimension user's sizes (genz_gaussian d=15 and genz_product_peak
    d=10 at 2^22 samples, f6 d=9 at 2^20; float64, 8 shards).  First the
@@ -888,8 +893,16 @@ def phase_timing():
     return out
 
 
+# Phase 9's bound on synchronising calls a fleet run beyond one a dispatch
+# (the engine's one read): the engine's construction copies the fresh
+# store's boxes (two) and the domain width to the card, once a device
+SERVICE_SYNC_EXTRA = 3
+
+
 def phase_service():
-    """The batch service's fleet on one rank and on four; see the docstring."""
+    """The batch service's fleet on one rank and on four, then at
+    admit_every 4 with sync_every 1 and 4 on one rank and on four; see the
+    docstring."""
     from repro_torch.core import adaptive
     from repro_torch.core import integrands
     from repro_torch.core.config import QuadratureConfig
@@ -903,33 +916,48 @@ def phase_service():
     requests = service_requests()
     total = 0
     runs = {}
-    for n in (1, 4):
+    K = SERVICE["sync_every"]
+    # (admit_every, sync_every, ranks)
+    for admit_every, sync_every, n in [
+        (1, K, 1), (1, K, 4), (4, 1, 1), (4, 1, 4), (4, K, 1), (4, K, 4),
+    ]:
         devices = cuda_devices(n)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         gm_kernel.reset_launch_count()
-        (results, sched), wall = _timed(lambda: serve_fleet(devices))
+        (results, sched), wall, sync_calls = _sync_counted(lambda: serve_fleet(
+            devices, admit_every=admit_every, sync_every=sync_every))
         launches = gm_kernel.launch_count()
-        stats = sched.last_stats
-        steps = sched.engine.eval_steps.tolist()
+        stats, eng = sched.last_stats, sched.engine
+        steps = eng.eval_steps.tolist()
         n_evals = sum(r.n_evals for r in results)
         row = dict(
             phase="service", ranks=n, devices=[str(x) for x in devices],
+            admit_every=admit_every, sync_every=sync_every,
             slots=SERVICE["batch_slots"], capacity_per_slot=SERVICE["capacity"],
             requests=len(results), wall_s=wall, requests_per_s=len(results) / wall,
             n_evals=n_evals, evals_per_s=n_evals / wall, iterations=stats["iterations"],
-            dispatches=stats["dispatches"], launches=launches, eval_steps_per_rank=steps,
+            dispatches=stats["dispatches"],
+            iterations_per_dispatch=stats["iterations"] / stats["dispatches"],
+            host_reads=eng.host_reads, sync_calls=sync_calls, landed_waits=eng.landed_waits,
+            host_sync_points=eng.host_reads + eng.landed_waits,
+            launches=launches, eval_steps_per_rank=steps,
             migrations=stats["migrations"], max_memory_allocated=torch.cuda.max_memory_allocated(),
             statuses={s: sum(r.status == s for r in results) for s in {r.status for r in results}},
         )
         log(json.dumps(row))
         assert len(results) == len(requests), row
         # one GM launch per rank per iteration in which the rank had a live
-        # slot; on one rank every iteration has one
+        # slot: nothing is enqueued past a dispatch's first finished slot; on
+        # one rank every iteration has one
         assert launches == sum(steps) > 0, row
         assert max(steps) <= stats["iterations"], row
         if n == 1:
-            assert launches == stats["iterations"], row
+            assert steps == [stats["iterations"]], row
+        # one read a dispatch, whatever it runs, and one wait an iteration
+        assert eng.host_reads == stats["dispatches"], row
+        assert eng.landed_waits == stats["iterations"], row
+        assert sync_calls <= stats["dispatches"] + SERVICE_SYNC_EXTRA * len(set(devices)), row
         # A request whose regions outgrow its 2^19-row store ends "capacity"
         # (evicted evict_patience iterations after the overflow, as in the
         # JAX service); its best-effort estimate is held to the same bar.
@@ -938,13 +966,16 @@ def phase_service():
             exact = family.exact(d, req.theta)
             budget = max(1e-16, abs(exact) * req.rel_tol)
             assert abs(res.integral - exact) <= 10 * max(res.error, budget), (res, exact)
-        runs[n] = results
+        runs[admit_every, sync_every, n] = tuples(results), results, row
         total += launches
-    assert tuples(runs[1]) == tuples(runs[4]), [
-        (a, b) for a, b in zip(tuples(runs[1]), tuples(runs[4])) if a != b][:2]
-    assert row["migrations"] > 0, row
+    for admit_every in (1, 4):
+        want = [v[0] for k, v in runs.items() if k[0] == admit_every]
+        assert all(t == want[0] for t in want), [
+            (a, b) for a, b in zip(want[0], want[-1]) if a != b][:2]
+    assert runs[1, K, 4][2]["migrations"] > 0
+    phase9 = runs[1, K, 1][1]
     # the first four requests against the single-problem driver on the card
-    for req, res in zip(requests[:4], runs[1][:4]):
+    for req, res in zip(requests[:4], phase9[:4]):
         cfg = QuadratureConfig(**{**SERVICE, "integrand": integrands.to_spec(family, req.theta),
                                   "rel_tol": req.rel_tol})
         gm_kernel.reset_launch_count()
@@ -956,7 +987,7 @@ def phase_service():
         assert (res.integral, res.error, res.status, res.iterations, res.n_evals) == (
             single.integral, single.error, single.status, single.iterations,
             single.n_evals), (res, single)
-    return total, runs[1]
+    return total, phase9
 
 
 # --- the VEGAS backend (phases 10 and 11) -------------------------------------

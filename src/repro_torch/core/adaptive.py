@@ -333,7 +333,7 @@ def integrate(
 _SNAP = ("integral", "error", "n_active", "n_evals", "it", "overflowed")
 
 
-def _record(device: torch.device):
+def record_event(device: torch.device):
     """An event behind the work queued so far on ``device`` (None on the
     CPU, where a copy has finished when it returns)."""
     if device.type != "cuda":
@@ -356,11 +356,12 @@ class LandedRows:
     A driver that runs up to ``steps`` iterations per host read records a
     row per iteration: ``start()`` opens a block, ``record(row)`` queues the
     copy of the next row with an event behind it, ``landed()`` is the number
-    of rows that have landed, found by querying the events in order, and
-    ``rows`` the host copies (all of them after the read that ends the
-    block).  With ``stop`` (a test of a host row), ``stopped()`` tells
-    whether a landed row shows the stop, and ``stop_at`` is the first such
-    row: from there on the driver enqueues nothing more.
+    of rows that have landed, found by querying the events in order,
+    ``wait(n)`` blocks until n have, and ``rows`` the host copies (all of
+    them after the read that ends the block).  With ``stop`` (a test of a
+    host row), ``stopped()`` tells whether a landed row shows the stop, and
+    ``stop_at`` is the first such row: from there on the driver enqueues
+    nothing more.
     """
 
     def __init__(self, steps: int, width: int, device: torch.device,
@@ -379,7 +380,7 @@ class LandedRows:
 
     def record(self, row: torch.Tensor) -> None:
         self._slots[len(self._events)].copy_(row, non_blocking=True)
-        self._events.append(_record(self._device))
+        self._events.append(record_event(self._device))
 
     def landed(self) -> int:
         while self._landed < len(self._events) and _landed(self._events[self._landed]):
@@ -391,6 +392,14 @@ class LandedRows:
     def stopped(self) -> bool:
         self.landed()
         return self.stop_at is not None
+
+    def wait(self, n: int) -> None:
+        """Block until the first ``n`` recorded rows have landed: the host
+        waits on the n-th row's event (no synchronising copy)."""
+        event = self._events[n - 1]
+        if event is not None:
+            event.synchronize()
+        self.landed()
 
 
 def stops(cfg: QuadratureConfig, integral: float, error: float, n_active) -> bool:

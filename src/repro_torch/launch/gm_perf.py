@@ -249,13 +249,14 @@ def service_requests():
     ]
 
 
-def serve_fleet(devices):
-    """Serve the fleet on ``devices`` (one per rank); returns the results
+def serve_fleet(devices, **change):
+    """Serve the fleet on ``devices`` (one per rank), with ``change`` to
+    :data:`SERVICE`'s fields (e.g. ``admit_every=4``); returns the results
     by req_id and the scheduler."""
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.service import BatchScheduler
 
-    sched = BatchScheduler(QuadratureConfig(**SERVICE), devices=devices)
+    sched = BatchScheduler(QuadratureConfig(**{**SERVICE, **change}), devices=devices)
     results = sorted(sched.serve(service_requests()), key=lambda r: r.req_id)
     return results, sched
 
@@ -780,7 +781,10 @@ def cmd_profile(args):
             results, sched = serve_fleet(devices)
             self.iterations = sched.last_stats["iterations"]
             self.n_evals = sum(r.n_evals for r in results)
-            self.host_syncs = self.iterations  # one stacked read per iteration
+            # the host waits on the card once an iteration (a landed row of
+            # decisions) and reads once a dispatch
+            eng = sched.engine
+            self.host_syncs = eng.host_reads + eng.landed_waits
 
     drivers["service"] = lambda cfg: Fleet(cuda_devices(1))
     drivers["vegas"] = lambda cfg: integrate_vegas(cfg, device="cuda")

@@ -23,18 +23,21 @@ When a rank's live slots drain, whole problems migrate from its cyclic ring
 partner: the paper's round-robin redistribution, lifted from regions to
 problems (:meth:`BatchEngine._rebalance`).
 
-The host drives each iteration, as the port's other drivers do.  It tracks
-every slot's population exactly (one stacked read per iteration for all
-ranks, then :func:`~repro_torch.core.split.next_population`), so it picks
-each rank's windows: the eval window is the smallest rung covering the
-rank's widest live slot, the advance window the rung covering
-``advance_target(widest, C)``.  Any window that covers a slot gives that
+The scheduler calls :meth:`BatchEngine.run`, a fused dispatch of up to
+``cfg.sync_every`` iterations with one host read of their metrics, as the
+JAX engine's ``lax.scan`` over ``lax.cond`` runs them.  Every slot
+decision (converged, evicted, capped, the next population, done) is a
+device tensor; each rank keeps its slots' ``done``, ``overflow_it`` and
+population on its device, and the host's numpy masks mirror them.  After
+each iteration's decisions the host waits on a pinned copy of those rows
+(not a synchronising read), so it splits only the slots that go on, plans
+each round from the masks after the iteration, sizes each window from exact
+populations and stops at the first iteration in which a slot finishes
+(:meth:`BatchEngine._dispatch`).  Any window that covers a slot gives that
 slot the same bits, so a slot's trajectory does not depend on its
-neighbours, its rank or its migrations: every result equals the
-single-store :func:`~repro_torch.core.adaptive.integrate`'s bit for bit,
-at any rank count.  The per-slot masks (``occupied``, ``done``) and the
-eviction clock (``overflow_it``) are host arrays, since the host makes the
-decisions they feed.
+neighbours, its rank, its migrations or ``sync_every``: every result
+equals the single-store :func:`~repro_torch.core.adaptive.integrate`'s
+bit for bit, at any rank count.
 """
 
 from __future__ import annotations
@@ -47,9 +50,11 @@ import torch
 
 from repro_torch.core import gauss_kronrod, region_store
 from repro_torch.core.adaptive import (
+    LandedRows,
     advance_ladder,
     advance_target,
     eval_ladder,
+    record_event,
     result_status,
 )
 from repro_torch.core.classify import classify, nonfinite_mask
@@ -64,18 +69,19 @@ from repro_torch.core.redistribution import (
 )
 from repro_torch.core.region_store import FIELDS, masked_sums, to_device
 from repro_torch.core.rules import make_rule
-from repro_torch.core.split import ROWS, SCALARS, next_population, split_compact_rows
+from repro_torch.core.split import ROWS, SCALARS, split_compact_rows
 from repro_torch.telemetry.core import NULL
 
-# The stacked read of one iteration: one row per value, one column per
-# live slot.
-_READ = (
-    "integral", "error", "budget", "n_active", "n_fin", "n_evals", "it",
-    "overflowed", "nonfinite",
+# The per-slot metrics of one iteration in a dispatch's read: one row per
+# value, one column per live slot.
+_METRICS = (
+    "integral", "error", "n_evals", "n_active", "it", "overflowed", "converged", "nonfinite",
 )
 
 # the per-slot host arrays of a BatchState
 HOST_FIELDS = ("occupied", "done", "overflow_it", "counts")
+# the rows of each rank's device copy of the slot decisions, (3, S_r) int64
+DEVICE_ROWS = ("done", "overflow_it", "counts")
 
 
 @dataclasses.dataclass
@@ -83,7 +89,10 @@ class BatchState:
     """The fleet: per-rank stacked stores on the devices, masks on the host.
 
     Slot ``s`` lives on rank ``s // slots_per_rank`` at local index
-    ``s % slots_per_rank``.
+    ``s % slots_per_rank``.  ``done``, ``overflow_it`` and ``counts`` are
+    the host's mirror of ``device_rows``, updated from each iteration's
+    landed copy; ``occupied`` changes only by host decisions (admit,
+    release, the moves the host plans), so it lives on the host alone.
     """
 
     regions: list  # per rank: RegionState, every field with a leading (S_r,) axis
@@ -94,6 +103,7 @@ class BatchState:
     done: np.ndarray  # (B,) bool: result ready, frozen until released
     overflow_it: np.ndarray  # (B,) int64: it at first overflow, -1 = never
     counts: np.ndarray  # (B,) int64: active regions of each slot
+    device_rows: list  # per rank: (3, S_r) int64 on its device, DEVICE_ROWS
 
     @property
     def n_slots(self) -> int:
@@ -184,9 +194,12 @@ class BatchEngine:
         with recorder.span(
             "engine.build", backend=self.backend, slots=self.n_slots, devices=self.n_ranks
         ):
-            # evaluate steps of each rank (one rule evaluation each: one GM
-            # launch with the GM rule) since construction
+            # since construction: the evaluate steps of each rank (one rule
+            # evaluation each: one GM launch with the GM rule), the host
+            # reads (one a dispatch) and the host's waits on a landed row of
+            # decisions (one an iteration; an event, not a synchronising copy)
             self.eval_steps = np.zeros(self.n_ranks, np.int64)
+            self.host_reads = self.landed_waits = 0
 
             lo = np.asarray(cfg.lo(), np.float64)
             hi = np.asarray(cfg.hi(), np.float64)
@@ -203,13 +216,19 @@ class BatchEngine:
             self.n_theta = sum(v.size for v in self.theta_template.values())
             # per device: the fresh single-slot store spliced in on admit, and
             # the domain width the classifier reads
-            self._fresh, self._width = {}, {}
+            self._fresh, self._width, self._admitted = {}, {}, {}
             for dev in self.ranks.devices:
                 if dev not in self._fresh:
                     self._fresh[dev] = region_store.init_state(
                         cfg.capacity, lo, hi, self._n_init, self._dtype, dev
                     )
                     self._width[dev] = torch.as_tensor(hi - lo, device=dev)
+                    # an admitted slot's device rows
+                    self._admitted[dev] = to_device([0, -1, self._n_init], torch.int64, dev)
+            first = self.ranks.first
+            self._read_stream = torch.cuda.Stream(first) if first.type == "cuda" else None
+            # per iteration of a dispatch: every rank's device rows
+            self._landed = LandedRows(cfg.sync_every, 3 * self.n_slots, first)
 
     # --- state construction --------------------------------------------------
 
@@ -218,7 +237,7 @@ class BatchEngine:
         cfg, S, dt = self.cfg, self.slots_per_rank, self._dtype
         devs = self.ranks.devices
         B = self.n_slots
-        return BatchState(
+        state = BatchState(
             regions=[
                 region_store.stacked_empty_state(S, cfg.capacity, cfg.d, dt, dev)
                 for dev in devs
@@ -230,7 +249,11 @@ class BatchEngine:
             done=np.zeros(B, bool),
             overflow_it=np.full(B, -1, np.int64),
             counts=np.zeros(B, np.int64),
+            device_rows=[torch.zeros((3, S), dtype=torch.int64, device=dev) for dev in devs],
         )
+        for rows in state.device_rows:
+            rows[1].fill_(-1)  # overflow_it: never
+        return state
 
     def _check_slot(self, slot: int) -> None:
         if not 0 <= int(slot) < self.n_slots:
@@ -266,6 +289,7 @@ class BatchEngine:
         state.theta[r][:, j] = col[: self.n_theta]
         state.rel_tol[r][j] = col[self.n_theta]
         state.abs_tol[r][j] = col[self.n_theta + 1]
+        state.device_rows[r][:, j] = self._admitted[dev]
         state.occupied[slot] = True
         state.done[slot] = False
         state.overflow_it[slot] = -1
@@ -275,6 +299,8 @@ class BatchEngine:
     def release(self, state: BatchState, slot: int) -> BatchState:
         """Free a collected slot (its store stays stale until the next admit)."""
         self._check_slot(slot)
+        r, j = divmod(int(slot), self.slots_per_rank)
+        state.device_rows[r][0, j].zero_()  # a fill: no copy from the host
         state.occupied[slot] = False
         state.done[slot] = False
         return state
@@ -325,7 +351,8 @@ class BatchEngine:
             if tuple(np.shape(host[k])) != shape:
                 raise ValueError(f"{k}: shape {np.shape(host[k])} != {shape}")
         S = self.slots_per_rank
-        regions, theta, rel_tol, abs_tol = [], [], [], []
+        rows = np.stack([np.asarray(host[k], np.int64) for k in DEVICE_ROWS])
+        regions, theta, rel_tol, abs_tol, device_rows = [], [], [], [], []
         for r, dev in enumerate(self.ranks.devices):
             sl = slice(r * S, (r + 1) * S)
             regions.append(region_store.RegionState(
@@ -333,29 +360,37 @@ class BatchEngine:
             theta.append(copy_to(host["theta"][sl].T, dev))
             rel_tol.append(copy_to(host["rel_tol"][sl], dev))
             abs_tol.append(copy_to(host["abs_tol"][sl], dev))
+            device_rows.append(copy_to(rows[:, sl], dev))
         return BatchState(
             regions=regions, theta=theta, rel_tol=rel_tol, abs_tol=abs_tol,
-            **{k: np.array(host[k]) for k in HOST_FIELDS},
+            **{k: np.array(host[k]) for k in HOST_FIELDS}, device_rows=device_rows,
         )
 
-    # --- one iteration ---------------------------------------------------------
+    # --- one iteration ----------------------------------------------------------
 
     def _evaluate(self, state: BatchState, r: int, mine: np.ndarray, ew: int, wa: int):
-        """Evaluate, quarantine and classify the live slots ``mine`` (local
-        indices) of rank ``r``.
+        """Enqueue the first half of one iteration of the live slots ``mine``
+        (local indices) of rank ``r``: evaluate, quarantine, classify and the
+        slot decisions, whose device rows are written at once.
 
         Works on a copy of the leading ``wa`` rows of each live slot (``wa``
-        covers every row the iteration touches).  Returns the copy, the
-        finalise mask, the index tensor of the slots and the ``_READ`` rows
-        for the host.
+        covers every row the iteration touches; ``ew`` the rows to
+        evaluate).  Every decision is a device tensor, with the host
+        driver's arithmetic: ``converged``, the eviction clock, ``capped``,
+        ``terminal``, the counter bump and the next population
+        (:func:`~repro_torch.core.split.next_population`).
+
+        Returns what :meth:`_advance` needs and the ``_METRICS`` rows of the
+        live slots (float64).
         """
-        cfg, rule = self.cfg, self._rule
-        regions = state.regions[r]
+        cfg, rule, C = self.cfg, self._rule, self.cfg.capacity
+        regions, rows = state.regions[r], state.device_rows[r]
         dev = self.ranks.devices[r]
         idx = to_device(mine, torch.long, dev)
         n, d = len(mine), cfg.d
         g = {k: getattr(regions, k)[idx, :wa] for k in ROWS}
         g.update({k: getattr(regions, k)[idx] for k in SCALARS + ("n_evals", "it")})
+        done, ov, _ = rows[:, idx]
 
         # --- evaluate: one rule call over every live slot's eval window -----
         need = g["active"][:, :ew] & g["fresh"][:, :ew]
@@ -397,81 +432,15 @@ class BatchEngine:
             self._total_volume, self._width[dev], budget=budget[:, None],
             rel_tol=rel[:, None],
         )
-        values = dict(
-            integral=integral, error=error, budget=budget, n_active=n_active,
-            n_fin=torch.sum(fin, dim=1), n_evals=g["n_evals"], it=g["it"],
-            overflowed=g["overflowed"], nonfinite=nonfinite,
-        )
-        read = torch.stack([values[k].double() for k in _READ])
-        return g, fin, idx, read
 
-    def _advance(self, state, r, g, fin, idx, wa, go: np.ndarray, it_after: np.ndarray):
-        """Split the slots flagged ``go`` and write every live slot back."""
-        regions = state.regions[r]
-        dev = self.ranks.devices[r]
-        if go.any():
-            sel = slice(None) if go.all() else to_device(np.flatnonzero(go), torch.long, dev)
-            rows, scalars = split_compact_rows(
-                self.cfg.capacity,
-                {k: g[k][sel] for k in ROWS},
-                {k: g[k][sel] for k in SCALARS},
-                fin[sel],
-            )
-            for k, v in list(rows.items()) + list(scalars.items()):
-                g[k][sel] = v
-        g["it"] = to_device(it_after, regions.it.dtype, dev)
-        for k in ROWS:
-            getattr(regions, k)[idx, :wa] = g[k]
-        for k in SCALARS + ("n_evals", "it"):
-            getattr(regions, k)[idx] = g[k]
-
-    def _iterate(self, state: BatchState):
-        """One adaptive iteration of every live slot.
-
-        Returns ``(row, n_new_done, windows)``: ``row`` holds the JAX
-        engine's per-slot metrics (``integral``, ``error``, ``n_active``,
-        ``it``, ``n_evals``, ``overflowed``, ``converged``, ``nonfinite``,
-        ``done``, ``occupied``; the values of the slots live in this
-        iteration, zeros elsewhere), ``windows`` each rank's eval window.
-        """
-        cfg, C, S = self.cfg, self.cfg.capacity, self.slots_per_rank
-        B = self.n_slots
-        live = state.occupied & ~state.done
-        windows = np.zeros(self.n_ranks, np.int64)
-        work = []
-        for r in range(self.n_ranks):
-            mine = np.flatnonzero(live[r * S : (r + 1) * S])
-            widest = int(state.counts[r * S + mine].max()) if len(mine) else 0
-            windows[r] = region_store.select_window(self._ladder, widest)
-            if len(mine):
-                self.eval_steps[r] += 1
-                wa = region_store.select_window(self._adv_ladder, advance_target(widest, C))
-                work.append((r, mine, wa) + self._evaluate(state, r, mine, int(windows[r]), wa))
-
-        row = {k: np.zeros(B, np.float64) for k in ("integral", "error", "n_evals")}
-        row.update({k: np.zeros(B, np.int64) for k in ("n_active", "it")})
-        row.update({k: np.zeros(B, bool) for k in ("overflowed", "converged", "nonfinite")})
-        row["occupied"] = state.occupied.copy()
-        if not work:
-            row["done"] = state.done.copy()
-            return row, 0, windows
-
-        # --- the one host read of the iteration, every rank at once -------
-        first = self.ranks.first
-        host = torch.cat([w[-1].to(first, non_blocking=True) for w in work], dim=1).cpu().numpy()
-        got = dict(zip(_READ, host))
-        slots = np.concatenate([r * S + mine for r, mine, *_ in work])
-        n_active = got["n_active"].astype(np.int64)
-        it = got["it"].astype(np.int64)
-        overflowed = got["overflowed"] > 0
-        nonfinite = got["nonfinite"] > 0
-        converged = got["error"] <= got["budget"]
+        # --- the slot decisions -----------------------------------------------
+        it = g["it"].long()
+        overflowed = g["overflowed"]
+        converged = error <= budget
         # Capacity pressure is not instantly terminal: an overflowed slot
         # keeps refining for evict_patience iterations before eviction, as
         # the serial driver grinds past overflow and often converges.
-        ov = state.overflow_it[slots]
-        ov = np.where(overflowed & (ov < 0), it, ov)
-        state.overflow_it[slots] = ov
+        ov = torch.where(overflowed & (ov < 0), it, ov)
         evicted = overflowed & (it - ov >= cfg.evict_patience)
         # The serial driver runs exactly max_iters evaluate steps: post-eval
         # it == max_iters - 1 means this one was the last, so the slot
@@ -483,39 +452,142 @@ class BatchEngine:
         # driver still runs (and counts) one advance before the loop ends.
         bump = capped & ~converged & (n_active > 0)
         it_after = it + go + bump
-        n_fin = got["n_fin"].astype(np.int64)
-        state.counts[slots] = [
-            next_population(a - f, C) if g else a for a, f, g in zip(n_active, n_fin, go)
-        ]
-        state.done[slots] = terminal
+        left = torch.clamp(n_active - torch.sum(fin, dim=1), max=3 * C // 4)
+        after = torch.where(go, left + torch.minimum(left, C - left), n_active)
+        rows[:, idx] = torch.stack([done | terminal, ov, after])
 
+        values = dict(
+            integral=integral, error=error, n_evals=g["n_evals"], n_active=n_active,
+            it=it_after, overflowed=overflowed, converged=converged, nonfinite=nonfinite,
+        )
+        read = torch.stack([values[k].double() for k in _METRICS])
+        return (g, fin, it_after, idx), read
+
+    def _advance(self, state: BatchState, r: int, wa: int, work, go: np.ndarray) -> None:
+        """Enqueue the second half: split the slots flagged ``go`` (a host
+        mask, from the landed decisions) and write every live slot back."""
+        g, fin, it_after, idx = work
+        regions = state.regions[r]
+        if go.any():
+            dev = idx.device
+            sel = slice(None) if go.all() else to_device(np.flatnonzero(go), torch.long, dev)
+            rows, scalars = split_compact_rows(
+                self.cfg.capacity,
+                {k: g[k][sel] for k in ROWS},
+                {k: g[k][sel] for k in SCALARS},
+                fin[sel],
+            )
+            for k, v in list(rows.items()) + list(scalars.items()):
+                g[k][sel] = v
+        g["it"] = it_after.to(regions.it.dtype)
+        for k in ROWS:
+            getattr(regions, k)[idx, :wa] = g[k]
+        for k in SCALARS + ("n_evals", "it"):
+            getattr(regions, k)[idx] = g[k]
+
+    # --- the fused dispatch -----------------------------------------------------
+
+    def _dispatch(self, state: BatchState, steps: int, tick: int, rebalance: bool):
+        """Up to ``steps`` iterations of every live slot, with one host read.
+
+        Each iteration enqueues every rank's evaluate and slot decisions,
+        then copies every rank's device rows (``done``, ``overflow_it``, the
+        next population) to pinned host memory with an event behind them
+        (:class:`LandedRows`) and waits on that event (``landed_waits``: a
+        wait, not a synchronising copy).  From the landed rows the host
+        updates its mirror, splits only the slots that go on, plans the
+        round from the masks after the iteration (the reference plans it
+        after the flip, and finished slots never migrate), sizes the next
+        windows from exact populations, and stops after the first iteration
+        in which a slot finished: nothing is enqueued past it.  The
+        per-slot metrics of every iteration come back in the dispatch's one
+        read.
+        """
+        cfg, C, S, n, B = self.cfg, self.cfg.capacity, self.slots_per_rank, self.n_ranks, self.n_slots
+        K = cfg.sync_every
+        ladder, first = self._ladder, self.ranks.first
+        moved = np.full((K, n * (self.rebalance_cap if n > 1 else 0), 2), -1, np.int64)
+        executed = np.zeros(K, bool)
+        metrics = {k: np.zeros((K, B), np.float64) for k in ("integral", "error", "n_evals")}
+        metrics.update({k: np.zeros((K, B), np.int64) for k in ("n_active", "it")})
+        metrics.update({k: np.zeros((K, B), bool) for k in
+                        ("overflowed", "converged", "nonfinite", "done", "occupied")})
+        metrics["window"] = np.zeros((K, n), np.int64)
+        if not (state.occupied & ~state.done).any():  # every iteration a pass-through
+            executed[:steps] = True
+            metrics["done"][:steps] = state.done
+            metrics["occupied"][:steps] = state.occupied
+            metrics["window"][:steps] = ladder[0]
+            return state, metrics, executed, moved
+
+        landed = self._landed
+        landed.start()
+        reads, kept = [], []  # the metrics tensors; per iteration, each rank's slots
+        for t in range(steps):
+            live = state.occupied & ~state.done
+            metrics["occupied"][t] = state.occupied
+            work = []
+            for r in range(n):
+                mine = np.flatnonzero(live[r * S:(r + 1) * S])
+                widest = int(state.counts[r * S + mine].max()) if len(mine) else 0
+                ew = metrics["window"][t, r] = region_store.select_window(ladder, widest)
+                if len(mine):
+                    self.eval_steps[r] += 1
+                    wa = region_store.select_window(self._adv_ladder, advance_target(widest, C))
+                    work.append((r, r * S + mine, wa) + self._evaluate(state, r, mine, ew, wa))
+            landed.record(torch.cat(
+                [rows.to(first, non_blocking=True).flatten() for rows in state.device_rows]))
+            reads.append(torch.cat([w[4].to(first, non_blocking=True).flatten() for w in work]))
+            kept.append([w[1] for w in work])
+            read_after = record_event(first)  # behind this iteration's metrics
+            landed.wait(t + 1)
+            self.landed_waits += 1
+            rows = landed.rows[t].reshape(n, 3, S).transpose(1, 0, 2).reshape(3, B)
+            finished = live & (rows[0] > 0)
+            state.done[:] = rows[0] > 0
+            state.overflow_it[:] = rows[1]
+            state.counts[:] = rows[2]
+            for r, slots, wa, w, _ in work:
+                self._advance(state, r, wa, w, ~finished[slots])
+            executed[t] = True
+            metrics["done"][t] = state.done
+            if rebalance:
+                moved[t] = self._rebalance(state, tick + t)
+            if finished.any():
+                break
+
+        # --- the dispatch's one read, on a stream that waits only for the last
+        # iteration's metrics: the card runs its advance on while the host goes on
+        if read_after is None:
+            host = torch.cat(reads).cpu().numpy()
+        else:
+            self._read_stream.wait_event(read_after)
+            with torch.cuda.stream(self._read_stream):
+                host = torch.cat(reads).cpu().numpy()
+        self.host_reads += 1
         at = 0
-        for r, mine, wa, g, fin, idx, _ in work:
-            part = slice(at, at + len(mine))
-            self._advance(state, r, g, fin, idx, wa, go[part], it_after[part])
-            at += len(mine)
-
-        for k, v in (
-            ("integral", got["integral"]), ("error", got["error"]),
-            ("n_evals", got["n_evals"]), ("n_active", n_active), ("it", it_after),
-            ("overflowed", overflowed), ("converged", converged), ("nonfinite", nonfinite),
-        ):
-            row[k][slots] = v
-        row["done"] = state.done.copy()
-        return row, int(terminal.sum()), windows
+        for t, slots_t in enumerate(kept):
+            for slots in slots_t:
+                block = host[at:at + len(_METRICS) * len(slots)].reshape(len(_METRICS), -1)
+                at += block.size
+                for i, key in enumerate(_METRICS):
+                    metrics[key][t, slots] = block[i]
+        return state, metrics, executed, moved
 
     def step(self, state: BatchState):
         """One iteration of every live slot (no migration); returns
-        ``(state, metrics)`` with per-slot host arrays (see :meth:`_iterate`)
-        and the scalar eval ``window`` of the first rank."""
-        row, _, windows = self._iterate(state)
-        return state, {**row, "window": int(windows[0])}
+        ``(state, metrics)`` with per-slot host arrays (see :meth:`run`) and
+        the scalar eval ``window`` of the first rank."""
+        state, ms, _, _ = self._dispatch(state, 1, 0, rebalance=False)
+        row = {k: v[0] for k, v in ms.items()}
+        return state, {**row, "window": int(row["window"][0])}
 
     # --- problem-level cyclic rebalancing ------------------------------------
 
     def _move(self, state: BatchState, src: int, dst: int) -> None:
         """Copy slot ``src``'s problem into the free slot ``dst`` (device to
-        device) and hand over its host masks."""
+        device), with its device rows (``done`` cleared), and hand over its
+        host masks."""
         S = self.slots_per_rank
         (rs, js), (rd, jd) = divmod(src, S), divmod(dst, S)
         a, b = state.regions[rs], state.regions[rd]
@@ -524,6 +596,9 @@ class BatchEngine:
         state.theta[rd][:, jd].copy_(state.theta[rs][:, js], non_blocking=True)
         for k in ("rel_tol", "abs_tol"):
             getattr(state, k)[rd][jd].copy_(getattr(state, k)[rs][js], non_blocking=True)
+        col = state.device_rows[rs][:, js].clone()
+        col[0].zero_()
+        state.device_rows[rd][:, jd].copy_(col, non_blocking=True)
         state.occupied[src] = False
         state.occupied[dst] = True
         state.done[dst] = False
@@ -540,9 +615,10 @@ class BatchEngine:
         from its ring partner at the scheduled shift: the donor's
         highest-index live slots go into the receiver's lowest-index free
         slots.  The counts are host arithmetic on the host's masks; the
-        payload (the slot's store rows, theta and tolerances) is a device to
-        device copy.  Returns ``(n_ranks * rebalance_cap, 2)`` records
-        ``(src_slot, dst_slot)``, -1 in unused rows, by receiving rank.
+        payload (the slot's store rows, theta, tolerances and device rows)
+        is a device to device copy.  Returns ``(n_ranks * rebalance_cap,
+        2)`` records ``(src_slot, dst_slot)``, -1 in unused rows, by
+        receiving rank.
         """
         n, S, cap = self.n_ranks, self.slots_per_rank, self.rebalance_cap
         shift = round_shift(self.schedule, tick)
@@ -574,7 +650,8 @@ class BatchEngine:
     # --- the multi-iteration dispatch -------------------------------------------
 
     def run(self, state: BatchState, max_steps: int, tick: int):
-        """Up to ``min(max_steps, cfg.sync_every)`` iterations.
+        """Up to ``min(max_steps, cfg.sync_every)`` iterations, fused: one
+        host read per call (see :meth:`_dispatch`).
 
         Stops after the first iteration in which a slot's ``done`` flips on,
         so the host scheduler observes every collection at its exact
@@ -583,7 +660,11 @@ class BatchEngine:
 
         - ``metrics``: per-slot host arrays stacked over the iterations,
           ``(sync_every, batch_slots)`` (``window``: ``(sync_every,
-          n_ranks)``), zero in rows that did not run;
+          n_ranks)``, each rank's rung of its widest exact population),
+          zero in rows that did not run: ``integral``, ``error``,
+          ``n_active``, ``it``, ``n_evals``, ``overflowed``, ``converged``,
+          ``nonfinite`` (the values of the slots live in that iteration,
+          zeros elsewhere), ``done`` and ``occupied``;
         - ``executed``: ``(sync_every,)`` prefix mask of the iterations run;
         - ``moved``: ``(sync_every, n_ranks * rebalance_cap, 2)``
           ``(src_slot, dst_slot)`` migration records per iteration (-1 =
@@ -592,27 +673,10 @@ class BatchEngine:
         ``tick`` is the fleet-global number of the first iteration (it
         indexes the cyclic migration schedule).
         """
-        K = self.cfg.sync_every
-        steps = min(int(max_steps), K)
+        steps = min(int(max_steps), self.cfg.sync_every)
         if steps < 1:
             raise ValueError(f"max_steps must be >= 1, got {max_steps}")
-        rows_moved = self.rebalance_cap if self.n_ranks > 1 else 0
-        moved = np.full((K, self.n_ranks * rows_moved, 2), -1, np.int64)
-        executed = np.zeros(K, bool)
-        rows = []
-        for t in range(steps):
-            row, n_new, windows = self._iterate(state)
-            rows.append({**row, "window": windows})
-            executed[t] = True
-            if self._rebalance_on:
-                moved[t] = self._rebalance(state, tick + t)
-            if n_new:
-                break
-        metrics = {
-            k: np.stack([r[k] for r in rows] + [np.zeros_like(rows[0][k])] * (K - len(rows)))
-            for k in rows[0]
-        }
-        return state, metrics, executed, moved
+        return self._dispatch(state, steps, tick, self._rebalance_on)
 
     def status_of(
         self,
