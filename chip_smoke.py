@@ -92,9 +92,15 @@ Phases, each of which passes or raises (a failure exits nonzero):
    4 ranks (cuda:(r mod count)): bit-equal to (a), one launch per rank
    per iteration;
 11. (a) the VEGAS pool: 64 genz_gaussian requests at d=10 served with
-   backend "auto" (16 slots, 2^18 samples, rel_tol 1e-3): every request
-   converged or max_iters, within 5 errors of its exact value, n_evals =
-   samples x iterations; (b) phase 9's one-rank fleet through
+   backend "auto" (16 slots, 2^18 samples, rel_tol 1e-3) at (admit_every,
+   sync_every) = (1, 4), (4, 1) and (4, 4): every request converged or
+   max_iters, within 5 errors of its exact value, n_evals = samples x
+   iterations; one sums launch per fleet iteration; one host read per
+   fused dispatch, one wait on a landed row of decisions per iteration,
+   and at most VEGAS_POOL_SYNC_EXTRA more synchronising calls a run than
+   dispatches; the two admit_every 4 runs the same bit for bit.  Each
+   run's wall, dispatches, iterations, reads, waits, synchronising calls,
+   launches and peak memory are logged; (b) phase 9's one-rank fleet through
    GracefulScheduler: the requests phase 9 finished are equal to phase
    9's results, the ones it evicted as capacity come back from the VEGAS
    pool with attempts 2, and last_stats counts them as reroutes;
@@ -1111,42 +1117,65 @@ def phase_vegas():
     return total, rows
 
 
+# Phase 11a's bound on synchronising calls a pool run beyond one a dispatch
+# (the engine's one read): the iterate's construction copies the domain's
+# origin and width to the card (two), and init_state makes one (the grid's
+# last edge set from a host scalar), for the fresh slot and for the pool
+VEGAS_POOL_SYNC_EXTRA = 4
+
+
 def phase_vegas_pool():
-    """Phase 11a: the VEGAS pool's fleet, routed by backend "auto"."""
+    """Phase 11a: the VEGAS pool's fleet, routed by backend "auto", at
+    (admit_every, sync_every) = (1, 4), (4, 1) and (4, 4)."""
     from repro_torch.core import integrands
     from repro_torch.core.ranks import cuda_devices
     from repro_torch.kernels import vegas_sums as vs
 
     family = integrands.PARAM_REGISTRY[VEGAS_POOL["integrand"]]
     d = VEGAS_POOL["d"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    vs.reset_launch_count()
-    (results, sched, thetas), wall = _timed(lambda: serve_pool(cuda_devices(1)))
-    launches = vs.launch_count()
-    stats = sched.last_stats
-    n_evals = sum(r.n_evals for r in results)
-    row = dict(
-        phase="vegas_pool", backend=sched.engine.backend, d=d, slots=VEGAS_POOL["batch_slots"],
-        mc_samples=VEGAS_POOL["mc_samples"], rel_tol=VEGAS_POOL["rel_tol"],
-        requests=len(results), wall_s=wall, requests_per_s=len(results) / wall,
-        n_evals=n_evals, evals_per_s=n_evals / wall, iterations=stats["iterations"],
-        dispatches=stats["dispatches"], launches=launches,
-        max_memory_allocated=torch.cuda.max_memory_allocated(),
-        statuses={s: sum(r.status == s for r in results) for s in {r.status for r in results}},
-        largest_errors_off=max(abs(r.integral - family.exact(d, thetas[r.req_id])) / r.error
-                               for r in results),
-    )
-    log(json.dumps(row))
-    assert sched.engine.backend == "vegas" and len(results) == len(thetas), row
-    for r in results:
-        exact = family.exact(d, thetas[r.req_id])
-        assert r.status in ("converged", "max_iters"), r
-        assert abs(r.integral - exact) < 5 * r.error, (r, exact)
-        assert r.n_evals == VEGAS_POOL["mc_samples"] * r.iterations, r
-    # one sums launch per fleet iteration: some slot is live in every one
-    assert launches == stats["iterations"] > 0, row
-    return launches
+    total = 0
+    runs = {}
+    for admit_every, sync_every in [(1, VEGAS_POOL["sync_every"]), (4, 1), (4, 4)]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        vs.reset_launch_count()
+        (results, sched, thetas), wall, sync_calls = _sync_counted(lambda: serve_pool(
+            cuda_devices(1), admit_every=admit_every, sync_every=sync_every))
+        launches = vs.launch_count()
+        stats, eng = sched.last_stats, sched.engine
+        n_evals = sum(r.n_evals for r in results)
+        row = dict(
+            phase="vegas_pool", backend=eng.backend, d=d, slots=VEGAS_POOL["batch_slots"],
+            mc_samples=VEGAS_POOL["mc_samples"], rel_tol=VEGAS_POOL["rel_tol"],
+            admit_every=admit_every, sync_every=sync_every,
+            requests=len(results), wall_s=wall, requests_per_s=len(results) / wall,
+            n_evals=n_evals, evals_per_s=n_evals / wall, iterations=stats["iterations"],
+            dispatches=stats["dispatches"], host_reads=eng.host_reads,
+            landed_waits=eng.landed_waits, sync_calls=sync_calls, launches=launches,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            statuses={s: sum(r.status == s for r in results) for s in {r.status for r in results}},
+            largest_errors_off=max(abs(r.integral - family.exact(d, thetas[r.req_id])) / r.error
+                                   for r in results),
+        )
+        log(json.dumps(row))
+        assert eng.backend == "vegas" and len(results) == len(thetas), row
+        for r in results:
+            exact = family.exact(d, thetas[r.req_id])
+            assert r.status in ("converged", "max_iters"), r
+            assert abs(r.integral - exact) < 5 * r.error, (r, exact)
+            assert r.n_evals == VEGAS_POOL["mc_samples"] * r.iterations, r
+        # one sums launch per fleet iteration: some slot is live in every
+        # one, and nothing is enqueued past a dispatch's first finish
+        assert launches == stats["iterations"] > 0, row
+        # one read a dispatch, whatever it runs, and one wait an iteration
+        assert eng.host_reads == stats["dispatches"], row
+        assert eng.landed_waits == stats["iterations"], row
+        assert sync_calls <= stats["dispatches"] + VEGAS_POOL_SYNC_EXTRA, row
+        runs[admit_every, sync_every] = [
+            (r.req_id, r.integral.hex(), r.error.hex(), r.status, r.iterations) for r in results]
+        total += launches
+    assert runs[4, 1] == runs[4, 4], [(a, b) for a, b in zip(runs[4, 1], runs[4, 4]) if a != b][:2]
+    return total
 
 
 def phase_graceful(phase9):

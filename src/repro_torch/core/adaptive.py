@@ -355,13 +355,13 @@ class LandedRows:
 
     A driver that runs up to ``steps`` iterations per host read records a
     row per iteration: ``start()`` opens a block, ``record(row)`` queues the
-    copy of the next row with an event behind it, ``landed()`` is the number
-    of rows that have landed, found by querying the events in order,
-    ``wait(n)`` blocks until n have, and ``rows`` the host copies (all of
-    them after the read that ends the block).  With ``stop`` (a test of a
-    host row), ``stopped()`` tells whether a landed row shows the stop, and
-    ``stop_at`` is the first such row: from there on the driver enqueues
-    nothing more.
+    copy of the next row (into its first ``row.numel()`` entries) with an
+    event behind it, ``landed()`` is the number of rows that have landed,
+    found by querying the events in order, ``wait(n)`` blocks until n have,
+    and ``rows`` the host copies (all of them after the read that ends the
+    block).  With ``stop`` (a test of a host row), ``stopped()`` tells
+    whether a landed row shows the stop, and ``stop_at`` is the first such
+    row: from there on the driver enqueues nothing more.
     """
 
     def __init__(self, steps: int, width: int, device: torch.device,
@@ -379,7 +379,7 @@ class LandedRows:
         self.stop_at: Optional[int] = None
 
     def record(self, row: torch.Tensor) -> None:
-        self._slots[len(self._events)].copy_(row, non_blocking=True)
+        self._slots[len(self._events)][:row.numel()].copy_(row, non_blocking=True)
         self._events.append(record_event(self._device))
 
     def landed(self) -> int:

@@ -3,7 +3,7 @@
     python src/repro_torch/launch/gm_perf.py time [--cases f4:5,genz_gaussian:8]
         [--batch 1048576] [--blocks 64,128,256,512] [--dtype float64] [--reps 50]
     python src/repro_torch/launch/gm_perf.py ptxas [--sass Li5E2F4]
-    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed,service,vegas]
+    python src/repro_torch/launch/gm_perf.py profile [--trace-dir DIR] [--drivers integrate,device,distributed,service,pool,vegas]
         [--sync-every K] [--repeat N]
     python src/repro_torch/launch/gm_perf.py ops [--sync-every K] [--device cuda]
     python src/repro_torch/launch/gm_perf.py interleave --trees DIR,DIR,. [--rounds 3]
@@ -40,7 +40,11 @@ rows evaluated against those of exact windows (:func:`_dispatch_split`).  ``--dr
 ``distributed`` (``integrate_distributed`` on four ranks over the visible
 GPUs, on :data:`DIST_CASES`, phase 6's), ``service`` (the batch service's
 one-rank fleet of ``chip_smoke.py`` phase 9, :data:`SERVICE`, in place of
-the three cases) and ``vegas`` (``integrate_vegas`` on the first of
+the three cases), ``pool`` (the VEGAS pool's fleet of phase 11a,
+:data:`VEGAS_POOL`; its ``host_syncs`` are the engine's reads and waits,
+and it uses only :func:`serve_pool`'s entry points, so it measures another
+checkout put first on ``PYTHONPATH`` with this file run by path) and
+``vegas`` (``integrate_vegas`` on the first of
 :data:`VEGAS_CASES`, with its device time split by stage: sample + map,
 integrand, reductions, refine, from the engine's named ranges).
 
@@ -686,14 +690,15 @@ def pool_thetas():
     return [family.sample_theta(VEGAS_POOL["d"], rng) for _ in range(VEGAS_POOL_REQUESTS)]
 
 
-def serve_pool(devices):
-    """Serve the VEGAS pool's fleet; returns the results by req_id, the
+def serve_pool(devices, **change):
+    """Serve the VEGAS pool's fleet, with ``change`` to :data:`VEGAS_POOL`'s
+    fields (e.g. ``admit_every=4``); returns the results by req_id, the
     scheduler and the thetas."""
     from repro_torch.core.config import QuadratureConfig
     from repro_torch.service import BatchScheduler, QuadRequest
 
     thetas = pool_thetas()
-    sched = BatchScheduler(QuadratureConfig(**VEGAS_POOL), devices=devices)
+    sched = BatchScheduler(QuadratureConfig(**{**VEGAS_POOL, **change}), devices=devices)
     results = sorted(sched.serve(QuadRequest(req_id=i, theta=t) for i, t in enumerate(thetas)),
                      key=lambda r: r.req_id)
     return results, sched, thetas
@@ -786,13 +791,27 @@ def cmd_profile(args):
             eng = sched.engine
             self.host_syncs = eng.host_reads + eng.landed_waits
 
+    class Pool:  # the VEGAS pool's run, read like a driver's result
+        def __init__(self, devices):
+            results, sched, _ = serve_pool(devices)
+            self.iterations = sched.last_stats["iterations"]
+            self.n_evals = sum(r.n_evals for r in results)
+            # the host waits once an iteration and reads once a dispatch; a
+            # checkout from before the fused dispatch reads once an iteration
+            eng = sched.engine
+            self.host_reads = getattr(eng, "host_reads", self.iterations)
+            self.landed_waits = getattr(eng, "landed_waits", 0)
+            self.host_syncs = self.host_reads + self.landed_waits
+
     drivers["service"] = lambda cfg: Fleet(cuda_devices(1))
+    drivers["pool"] = lambda cfg: Pool(cuda_devices(1))
     drivers["vegas"] = lambda cfg: integrate_vegas(cfg, device="cuda")
     vegas_cfg = vegas_case(*VEGAS_CASES[0])[0]
     # (integrand, d, rel_tol, capacity, redistribution or None)
     own_case = {
         "service": [("service:" + SERVICE["integrand"], SERVICE["d"], None, SERVICE["capacity"],
                      None)],
+        "pool": [("pool:" + VEGAS_POOL["integrand"], VEGAS_POOL["d"], None, None, None)],
         "vegas": [(VEGAS_CASES[0][0], VEGAS_CASES[0][1], None, None, None)],
         "distributed": [(name, d, rel_tol, DIST_CAPACITY, policy)
                         for name, d, rel_tol, policy in DIST_CASES],
@@ -802,7 +821,7 @@ def cmd_profile(args):
     smi = card()
     for driver, (name, d, rel_tol, capacity, policy) in runs:
         run = drivers[driver]
-        if driver in ("service", "vegas"):
+        if driver in ("service", "pool", "vegas"):
             cfg = vegas_cfg if driver == "vegas" else None
         else:
             cfg = QuadratureConfig(d=d, integrand=name, rel_tol=rel_tol, capacity=capacity,
@@ -822,7 +841,9 @@ def cmd_profile(args):
         case = name.split(":")[0]
         row = dict(driver=driver, case=case, d=d, redistribution=policy,
                    iterations=res.iterations, n_evals=res.n_evals,
-                   host_syncs=res.host_syncs, wall_s=wall_plain, walls_s=walls, cpus_s=cpus,
+                   host_syncs=res.host_syncs, host_reads=getattr(res, "host_reads", None),
+                   landed_waits=getattr(res, "landed_waits", None),
+                   wall_s=wall_plain, walls_s=walls, cpus_s=cpus,
                    discarded=getattr(res, "discarded", None), card=smi)
         if args.walls_only:
             print(json.dumps(row), flush=True)
@@ -1186,7 +1207,7 @@ def _ints(s):
 
 def _drivers(s):
     names = s.split(",")
-    unknown = set(names) - {"integrate", "device", "distributed", "service", "vegas"}
+    unknown = set(names) - {"integrate", "device", "distributed", "service", "pool", "vegas"}
     if unknown:
         raise argparse.ArgumentTypeError(f"unknown drivers {sorted(unknown)}")
     return names
@@ -1232,7 +1253,7 @@ def main(argv=None):
     p = sub.add_parser("profile", help="torch.profiler breakdown of the main path")
     p.add_argument("--trace-dir", default=None, help="write Chrome traces here")
     p.add_argument("--drivers", type=_drivers, default=["integrate"],
-                   help="comma-separated: integrate, device, distributed, service, vegas")
+                   help="comma-separated: integrate, device, distributed, service, pool, vegas")
     p.add_argument("--repeat", type=int, default=1,
                    help="unprofiled runs per case; wall_s is their median")
     p.add_argument("--walls-only", action="store_true",

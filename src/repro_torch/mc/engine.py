@@ -39,7 +39,9 @@ numbers are not the CPU's).
 ``P``: ``P = 1`` for one integral, the live slots for
 :class:`VegasBatchEngine`.  The state's iteration counters are host arrays:
 the host knows them without reading the device, and the draws' seeds need
-them.  The host reads one stacked set of values per iteration.
+them.  The single-problem loop reads one stacked set of values per
+iteration; the pool reads once per dispatch of up to ``sync_every``
+iterations, its slot decisions made on the device.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from typing import Any, Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.adaptive import AdaptiveResult, resolve_device
+from repro_torch.core.adaptive import AdaptiveResult, LandedRows, resolve_device
 from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import ParamIntegrand, get as get_integrand
 from repro_torch.core.integrands import get_param, parse_spec
@@ -169,7 +171,7 @@ def make_iterate(
     *,
     has_theta: bool = False,
     devices: Sequence = ("cuda",),
-    uniforms: Optional[Callable[[int, int], Any]] = None,
+    uniforms: Optional[Callable[[int, int, int], Any]] = None,
 ) -> Callable:
     """Build the single-iteration update.
 
@@ -188,9 +190,10 @@ def make_iterate(
     and reduces shards ``[r S/n, (r+1) S/n)`` of the ``S = mc_shards``, and
     the partials are gathered to the first rank in shard order.
 
-    ``uniforms(it, shard)``, for tests only, replaces the generator: it
-    returns the ``(d, Ns)`` uniforms of shard ``shard`` at iteration ``it``
-    (one problem).
+    ``uniforms(stream, it, shard)``, for tests only, replaces the
+    generator: it returns the ``(d, Ns)`` uniforms of shard ``shard`` at
+    iteration ``it`` of the problem whose stream is ``stream`` (a pool slot's
+    stream names its slot and admission).
     """
     cfg = cfg.validate()
     d, nb = cfg.d, cfg.mc_bins
@@ -222,7 +225,7 @@ def make_iterate(
 
     def draw(dev, stream: int, it: int, shard: int) -> torch.Tensor:
         if uniforms is not None:
-            return torch.as_tensor(uniforms(it, shard), dtype=dtype, device=dev)
+            return torch.as_tensor(uniforms(stream, it, shard), dtype=dtype, device=dev)
         gen = per_dev[dev][2]
         gen.manual_seed(stream_seed(stream, it, shard))
         return torch.rand((d, Ns), generator=gen, dtype=dtype, device=dev)
@@ -395,6 +398,20 @@ def converged_now(cfg: QuadratureConfig, integral: float, error: float, n_acc: i
     return n_acc >= MIN_ACCUMULATED and error <= budget
 
 
+def slot_decisions(integral, error, nonfinite, rel_tol, abs_tol, accumulated, capped):
+    """The pool's slot decisions on the device, in the state's dtype, as the
+    JAX pool makes them: ``(converged, done)`` of the live slots.
+
+    ``converged`` is the error within ``max(abs_tol, |I| rel_tol)`` after at
+    least ``MIN_ACCUMULATED`` accumulated iterations (``accumulated``, a
+    flag from the host's counters); a slot is done when it converged, ran
+    ``mc_max_iters`` iterations (``capped``) or went non-finite.
+    """
+    budget = torch.maximum(abs_tol, torch.abs(integral) * rel_tol)
+    converged = (error <= budget) & accumulated
+    return converged, converged | capped | nonfinite
+
+
 def drive(
     cfg: QuadratureConfig,
     iterate: Callable,
@@ -522,7 +539,8 @@ class VegasBatchEngine:
     service admits MC-backed requests through the same host loop.  Each
     iteration runs :func:`make_iterate`'s update once over the live slots
     (theta leaves ``(d, P, 1)`` broadcast against ``(d, P, N)``
-    coordinates), and the host reads one stacked set of values for them.
+    coordinates); :meth:`run` fuses up to ``sync_every`` of them per host
+    read.
 
     The pool is single-rank: MC parallelism lives at the sample level
     (:mod:`repro_torch.mc.multi_device` shards one problem's samples), not
@@ -539,7 +557,9 @@ class VegasBatchEngine:
         family: Union[ParamIntegrand, str, None] = None,
         devices: Optional[Sequence] = None,
         recorder=NULL,
+        uniforms: Optional[Callable[[int, int, int], Any]] = None,
     ):
+        """``uniforms``: :func:`make_iterate`'s draws hook, for tests only."""
         cfg = cfg.validate()
         if (devices is not None and len(devices) > 1) or (
             devices is None and cfg.service_devices not in (0, 1)
@@ -562,10 +582,15 @@ class VegasBatchEngine:
         self._dtype = getattr(torch, cfg.dtype)
         self.recorder = recorder
         with recorder.span("engine.build", backend=self.backend, slots=self.n_slots, devices=1):
+            # since construction: the host reads (one a dispatch) and the
+            # host's waits on a landed row of decisions (one an iteration)
+            self.host_reads = self.landed_waits = 0
             self._fresh = init_state(cfg, self.device)
             self._iterate = make_iterate(
-                cfg, self.family.fn, has_theta=True, devices=[self.device]
+                cfg, self.family.fn, has_theta=True, devices=[self.device], uniforms=uniforms
             )
+            # per iteration of a dispatch: the live slots' done flags
+            self._landed = LandedRows(cfg.sync_every, self.n_slots, self.device, torch.bool)
 
     # --- state ---------------------------------------------------------------
 
@@ -666,73 +691,99 @@ class VegasBatchEngine:
             **{k: np.array(host[k]) for k in _POOL_HOST},
         )
 
-    # --- one iteration -------------------------------------------------------
+    # --- the fused dispatch --------------------------------------------------
 
-    def _iterate_live(self, state: VegasBatchState):
-        """One iteration of every live slot; returns the per-slot row (the
-        JAX engine's metrics: values of the live slots, zeros elsewhere)
-        and the number of slots that finished."""
-        cfg, B, mc = self.cfg, self.n_slots, state.mc
-        row = {k: np.zeros(B, np.float64) for k in ("integral", "error", "n_evals")}
-        row.update({k: np.zeros(B, np.int64) for k in ("n_active", "it")})
-        row.update({k: np.zeros(B, bool) for k in ("overflowed", "converged", "nonfinite")})
-        row["occupied"] = state.occupied.copy()
+    def run(self, state: VegasBatchState, max_steps: int, tick: int):
+        """Up to ``min(max_steps, cfg.sync_every)`` iterations of every live
+        slot, with one host read; the contract of :meth:`BatchEngine.run`
+        (``moved`` has no rows, ``window`` is zero).
+
+        Each iteration gathers the live slots' state, runs
+        :func:`make_iterate`'s update over them, scatters it back and makes
+        the slot decisions on the device (:func:`slot_decisions`), then
+        copies the live slots' ``done`` row to pinned memory with an event
+        behind it and waits on that event (``landed_waits``: a wait, not a
+        synchronising copy).  It stops after the first iteration in which a
+        slot finished, so nothing is enqueued past a finish and the live set
+        holds for the whole dispatch.  The metrics of every iteration come
+        back in the dispatch's one read (``host_reads``): the values of the
+        live slots, zeros elsewhere.
+        """
+        cfg, B, K, mc = self.cfg, self.n_slots, self.cfg.sync_every, state.mc
+        steps = min(int(max_steps), K)
+        if steps < 1:
+            raise ValueError(f"max_steps must be >= 1, got {max_steps}")
+        metrics = {k: np.zeros((K, B), np.float64) for k in ("integral", "error", "n_evals")}
+        metrics.update({k: np.zeros((K, B), np.int64) for k in ("n_active", "it")})
+        metrics.update({k: np.zeros((K, B), bool) for k in
+                        ("overflowed", "converged", "nonfinite", "done", "occupied")})
+        metrics["window"] = np.zeros((K, 1), np.int64)
+        executed = np.zeros(K, bool)
+        moved = np.full((K, 0, 2), -1, np.int64)
         live = np.flatnonzero(state.occupied & ~state.done)
-        if not len(live):
-            row["done"] = state.done.copy()
-            return row, 0
-        idx = slice(None) if len(live) == B else to_device(live, torch.long, self.device)
-        sub = VegasState(
-            edges=mc.edges[idx], strat_w=mc.strat_w[idx], sum_wi=mc.sum_wi[idx],
-            sum_w=mc.sum_w[idx], sum_wi2=mc.sum_wi2[idx], stream=mc.stream[live],
-            it=mc.it[live], n_acc=mc.n_acc[live], n_evals=mc.n_evals[live],
-        )
+        if not len(live):  # every iteration a pass-through
+            executed[:steps] = True
+            metrics["done"][:steps] = state.done
+            metrics["occupied"][:steps] = state.occupied
+            return state, metrics, executed, moved
+
+        dev = self.device
+        idx = slice(None) if len(live) == B else to_device(live, torch.long, dev)
+        # the tolerances change only at admission, between dispatches
+        rel_tol, abs_tol = to_device(
+            np.stack([state.rel_tol[live], state.abs_tol[live]]), self._dtype, dev)
         cols = state.theta[:, idx]
         theta, at = {}, 0
         for k in self.family.theta_fields:
             size = self.theta_template[k].size
             theta[k] = cols[at:at + size, :, None]
             at += size
-        new, m = self._iterate(sub, theta)
-        for k in _MC_TENSORS:
-            getattr(mc, k)[idx] = getattr(new, k)
-        mc.it[live], mc.n_acc[live], mc.n_evals[live] = new.it, new.n_acc, new.n_evals
-        got = read_metrics(m)
-        budget = np.maximum(state.abs_tol[live], np.abs(got["integral"]) * state.rel_tol[live])
-        converged = (got["error"] <= budget) & (new.n_acc >= MIN_ACCUMULATED)
-        capped = new.it >= cfg.mc_max_iters
-        nonfinite = got["nonfinite"] > 0
-        terminal = converged | capped | nonfinite
-        state.done[live] = terminal
-        for k, v in (
-            ("integral", got["integral"]), ("error", got["error"]), ("n_evals", new.n_evals),
-            ("it", new.it), ("converged", converged), ("nonfinite", nonfinite),
-        ):
-            row[k][live] = v
-        row["done"] = state.done.copy()
-        return row, int(terminal.sum())
-
-    def run(self, state: VegasBatchState, max_steps: int, tick: int):
-        """Same contract as :meth:`BatchEngine.run` (``moved`` has no rows):
-        up to ``min(max_steps, cfg.sync_every)`` iterations, stopping after
-        the first in which a slot finishes."""
-        K = self.cfg.sync_every
-        steps = min(int(max_steps), K)
-        if steps < 1:
-            raise ValueError(f"max_steps must be >= 1, got {max_steps}")
-        executed = np.zeros(K, bool)
-        rows = []
+        landed = self._landed
+        landed.start()
+        reads = []
         for t in range(steps):
-            row, n_new = self._iterate_live(state)
-            rows.append({**row, "window": np.zeros(1, np.int64)})
+            sub = VegasState(
+                edges=mc.edges[idx], strat_w=mc.strat_w[idx], sum_wi=mc.sum_wi[idx],
+                sum_w=mc.sum_w[idx], sum_wi2=mc.sum_wi2[idx], stream=mc.stream[live],
+                it=mc.it[live], n_acc=mc.n_acc[live], n_evals=mc.n_evals[live],
+            )
+            new, m = self._iterate(sub, theta)
+            for k in _MC_TENSORS:
+                getattr(mc, k)[idx] = getattr(new, k)
+            mc.it[live], mc.n_acc[live], mc.n_evals[live] = new.it, new.n_acc, new.n_evals
+            # the host counters' part of the decisions, as device flags
+            accumulated, capped = to_device(
+                np.stack([new.n_acc >= MIN_ACCUMULATED, new.it >= cfg.mc_max_iters]),
+                torch.bool, dev)
+            converged, done = slot_decisions(
+                m["integral"], m["error"], m["nonfinite"], rel_tol, abs_tol, accumulated, capped)
+            landed.record(done)
+            reads.append(torch.stack(
+                [m["integral"].double(), m["error"].double(), converged.double(),
+                 m["nonfinite"].double()]))
+            landed.wait(t + 1)
+            self.landed_waits += 1
+            finished = landed.rows[t, :len(live)]
+            state.done[live] = finished
             executed[t] = True
-            if n_new:
+            metrics["occupied"][t] = state.occupied
+            metrics["done"][t] = state.done
+            metrics["it"][t, live] = mc.it[live]
+            metrics["n_evals"][t, live] = mc.n_evals[live]
+            if finished.any():
                 break
-        metrics = {
-            k: np.stack([r[k] for r in rows] + [np.zeros_like(rows[0][k])] * (K - len(rows)))
-            for k in rows[0]
-        }
-        return state, metrics, executed, np.full((K, 0, 2), -1, np.int64)
+
+        # the dispatch's one read: nothing is enqueued after the last
+        # iteration's metrics, so it waits for nothing else
+        host = torch.cat(reads).cpu().numpy()
+        self.host_reads += 1
+        for t, (integral, error, converged, nonfinite) in enumerate(
+                host.reshape(-1, 4, len(live))):
+            metrics["integral"][t, live] = integral
+            metrics["error"][t, live] = error
+            metrics["converged"][t, live] = converged > 0
+            metrics["nonfinite"][t, live] = nonfinite > 0
+        return state, metrics, executed, moved
 
     def status_of(
         self,

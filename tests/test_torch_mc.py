@@ -313,12 +313,12 @@ def test_sums_reject_bad_shapes():
 
 
 def _ref_uniforms(cfg):
-    """``uniforms(it, shard)``: the reference's own draws (its key split
+    """``uniforms(stream, it, shard)``: the reference's own draws (its key split
     once per iteration, folded with the shard id)."""
     d, ns = cfg.d, cfg.mc_samples // cfg.mc_shards
     keys, subs, cache = [jax.random.PRNGKey(cfg.mc_seed)], [], {}
 
-    def uniforms(it, shard):
+    def uniforms(stream, it, shard):
         while len(subs) <= it:
             key, sub = jax.random.split(keys[-1])
             keys.append(key)
