@@ -16,7 +16,8 @@ docstring).
 Both take a ``recorder`` (:mod:`repro_torch.telemetry`) with the JAX
 package's names: ``core.eval`` / ``core.advance`` spans and a ``core.iter``
 instant per iteration in :func:`integrate`, one ``core.device_loop`` span in
-:func:`integrate_device`.  It records host numbers only and adds no read.
+:func:`integrate_device`; inside them the port's stage spans (each driver's
+docstring lists them).  It records host numbers only and adds no read.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from repro_torch.core.config import QuadratureConfig
 from repro_torch.core.integrands import get as get_integrand
 from repro_torch.core.region_store import RegionState
 from repro_torch.core.rules import make_rule
-from repro_torch.core.split import classify_split_compact, next_population
+from repro_torch.core.split import classify_split_compact, next_population, stage_spans
 from repro_torch.telemetry.core import NULL
 
 
@@ -51,6 +52,11 @@ class AdaptiveResult:
     # evaluate steps (integrate_device) or iterations (integrate_distributed)
     # enqueued, at least in part, after the stop, and discarded
     discarded: int = 0
+    # rows the evaluate steps covered (summed over ranks), every step run in
+    # full counted, discarded ones too, and the rows they would have covered
+    # had every window been sized from the exact count (the K = 1 windows)
+    eval_rows: int = 0
+    eval_rows_exact: int = 0
 
     def summary(self) -> str:
         return (
@@ -219,7 +225,7 @@ def result_status(
     return "running"
 
 
-def _setup(cfg: QuadratureConfig, integrand, device: torch.device):
+def _setup(cfg: QuadratureConfig, integrand, device: torch.device, recorder=NULL):
     cfg = cfg.validate()
     lo = np.asarray(cfg.lo(), np.float64)
     hi = np.asarray(cfg.hi(), np.float64)
@@ -227,7 +233,7 @@ def _setup(cfg: QuadratureConfig, integrand, device: torch.device):
     dtype = getattr(torch, cfg.dtype)
     rule = make_rule(cfg, integrand)
     state = region_store.init_state(
-        cfg.capacity, lo, hi, cfg.resolved_n_init(), dtype, device
+        cfg.capacity, lo, hi, cfg.resolved_n_init(), dtype, device, recorder
     )
     return cfg, lo, hi, total_volume, rule, state
 
@@ -246,16 +252,23 @@ def integrate(
     on ``device``).  ``callback(it, integral, error, n_active)`` is called
     once per evaluate step.
 
-    ``recorder`` gets, per iteration, a ``core.eval`` span around the
-    evaluate, the classify and the iteration's one read (so on the card it
-    ends after the device has done that work), with the rule's ``route``
-    among its attributes, a ``core.iter`` instant with the read values, and a ``core.advance`` span around the split and
-    compact, which ends with no read: on the card it measures the host's
-    enqueue time, not device time.
+    ``recorder`` gets a ``core.init`` span around the set-up (the rule, the
+    store, and inside it a ``core.partition`` span around the initial
+    partition); per iteration a ``core.eval`` span around the evaluate, the
+    classify and the iteration's one read (so on the card it ends after the
+    device has done that work), with the rule's ``route`` among its
+    attributes, holding ``core.rule``, ``core.classify`` and ``core.read``
+    spans; a ``core.iter`` instant with the read values; and a
+    ``core.advance`` span around the compact and split (``core.compact``,
+    ``core.split``), which ends with no read: on the card it measures the
+    host's enqueue time, not device time.  Every other read (the final one,
+    a quarantine's) is a ``core.read`` span too.  ``eval_rows`` and
+    ``eval_rows_exact`` are both the evaluate windows' rows.
     """
     device = resolve_device(device)
-    cfg, lo, hi, total_volume, rule, state = _setup(cfg, integrand, device)
-    width = torch.as_tensor(hi - lo, device=device)
+    with recorder.span("core.init"):
+        cfg, lo, hi, total_volume, rule, state = _setup(cfg, integrand, device, recorder)
+        width = torch.as_tensor(hi - lo, device=device)
     ladder = eval_ladder(cfg)
     adv_ladder = advance_ladder(cfg)
     C = cfg.capacity
@@ -266,21 +279,26 @@ def integrate(
     n_active = cfg.resolved_n_init()
     it = 0
     syncs = 0
+    eval_rows = 0
     for _ in range(cfg.max_iters):
         with recorder.span("core.eval", window=int(n_active), route=rule.route):
             eval_w = region_store.select_window(ladder, n_active)
-            state = make_eval_step(cfg, rule, window=eval_w)(state)
+            with recorder.span("core.rule"):
+                state = make_eval_step(cfg, rule, window=eval_w)(state)
+            eval_rows += eval_w
             w = region_store.select_window(adv_ladder, advance_target(n_active, C))
             ww = None if w == C else w
             # The classify half of the advance runs before the sync, so that
             # the host learns the finalised count with the estimates and can
             # size the next window without a second sync.
-            integral_t, error_t, fin = classify_window(
-                cfg, state, total_volume, width, ww
-            )
-            synced = torch.stack(
-                [integral_t.double(), error_t.double(), fin.sum().double()]
-            ).tolist()
+            with recorder.span("core.classify"):
+                integral_t, error_t, fin = classify_window(
+                    cfg, state, total_volume, width, ww
+                )
+            with recorder.span("core.read"):
+                synced = torch.stack(
+                    [integral_t.double(), error_t.double(), fin.sum().double()]
+                ).tolist()
         syncs += 1
         integral, error, n_fin = synced[0], synced[1], int(synced[2])
         if recorder.enabled:
@@ -294,7 +312,8 @@ def integrate(
             # the offending regions and stop with the best-effort estimate
             # of the surviving population (terminal status "nonfinite")
             state, gi, ge, na = quarantine_step(state)
-            gi, ge, na = torch.stack([gi.double(), ge.double(), na.double()]).tolist()
+            with recorder.span("core.read"):
+                gi, ge, na = torch.stack([gi.double(), ge.double(), na.double()]).tolist()
             syncs += 1
             integral, error, n_active = gi, ge, int(na)
             nonfinite = True
@@ -306,14 +325,15 @@ def integrate(
         if n_active == 0:
             break
         with recorder.span("core.advance", n_active=int(n_active)):
-            state = classify_split_compact(state, fin, window=ww)
+            state = classify_split_compact(state, fin, window=ww, **stage_spans(recorder))
             state.it += 1  # in place, on the device
         it += 1
         n_active = next_population(n_active - n_fin, C)
 
-    n_evals, overflowed = torch.stack(
-        [state.n_evals.double(), state.overflowed.double()]
-    ).tolist()
+    with recorder.span("core.read"):
+        n_evals, overflowed = torch.stack(
+            [state.n_evals.double(), state.overflowed.double()]
+        ).tolist()
     syncs += 1
     overflowed = bool(overflowed)
     return AdaptiveResult(
@@ -325,6 +345,8 @@ def integrate(
         n_active=n_active,
         overflowed=overflowed,
         host_syncs=syncs,
+        eval_rows=eval_rows,
+        eval_rows_exact=eval_rows,
     )
 
 
@@ -444,14 +466,23 @@ def integrate_device(
     the estimates of the state after its last advance (its new children
     still unevaluated), and there is no quarantine: ``nonfinite`` comes
     from the final values.  ``iterations`` is the state's ``it``.  The
-    host syncs are at most ceil((iterations + 1) / K).
+    host syncs are at most ceil((iterations + 1) / K).  ``eval_rows``
+    counts the rows of every evaluate step enqueued (discarded ones too),
+    ``eval_rows_exact`` the rows of the windows that each step's exact
+    population, read from its snapshot, would have chosen.
 
     ``recorder`` gets one ``core.device_loop`` span around the whole loop,
     as in the JAX package, whose host cannot see the loop's iterations.
+    Inside it, the port's stage spans: per iteration ``core.rule``,
+    ``core.classify``, ``core.snapshot`` (the snapshot and its copy),
+    ``core.compact``, ``core.split`` and ``core.snapshot`` (the
+    population's copy), and a ``core.read`` per block.  Before it, a
+    ``core.init`` span around the set-up, holding ``core.partition``.
     """
     device = resolve_device(device)
-    cfg, lo, hi, total_volume, rule, state = _setup(cfg, integrand, device)
-    width = torch.as_tensor(hi - lo, device=device)
+    with recorder.span("core.init"):
+        cfg, lo, hi, total_volume, rule, state = _setup(cfg, integrand, device, recorder)
+        width = torch.as_tensor(hi - lo, device=device)
     ladder = eval_ladder(cfg)
     adv_ladder = advance_ladder(cfg)
     C = cfg.capacity
@@ -469,6 +500,7 @@ def integrate_device(
     it = 0
     syncs = 0
     discarded = 0
+    eval_rows = eval_rows_exact = 0
     final = None
     with recorder.span("core.device_loop", max_iters=cfg.max_iters):
         while final is None:
@@ -481,23 +513,34 @@ def integrate_device(
                     break
                 m = counts.landed()
                 bound = min((int(counts.rows[m - 1, 0]) if m else n) << (j - m), C)
-                state = make_eval_step(cfg, rule, window=region_store.select_window(ladder, bound))(state)
+                eval_w = region_store.select_window(ladder, bound)
+                with recorder.span("core.rule"):
+                    state = make_eval_step(cfg, rule, window=eval_w)(state)
+                eval_rows += eval_w
                 w = region_store.select_window(adv_ladder, advance_target(bound, C))
                 ww = None if w == C else w
-                integral, error, fin = classify_window(cfg, state, total_volume, width, ww)
-                block.append(snapshot(state, integral, error, state.active[:w]))
-                snaps.record(block[-1])
+                with recorder.span("core.classify"):
+                    integral, error, fin = classify_window(cfg, state, total_volume, width, ww)
+                with recorder.span("core.snapshot"):
+                    block.append(snapshot(state, integral, error, state.active[:w]))
+                    snaps.record(block[-1])
                 if snaps.stopped():
                     break
-                state = classify_split_compact(state, fin, window=ww)
+                state = classify_split_compact(state, fin, window=ww, **stage_spans(recorder))
                 state.it += 1  # in place, on the device
-                counts.record(state.active[:w].sum())
+                with recorder.span("core.snapshot"):
+                    counts.record(state.active[:w].sum())
             else:
                 if it + steps == cfg.max_iters:
                     # the loop ends after this advance: its estimates are the result
-                    block.append(snapshot(state, *state.global_estimates(), state.active))
-            rows = [dict(zip(_SNAP, r)) for r in torch.stack(block).tolist()]
+                    with recorder.span("core.snapshot"):
+                        block.append(snapshot(state, *state.global_estimates(), state.active))
+            with recorder.span("core.read"):
+                rows = [dict(zip(_SNAP, r)) for r in torch.stack(block).tolist()]
             syncs += 1
+            # a row an evaluate step, and after them the final row at max_iters
+            eval_rows_exact += sum(region_store.select_window(ladder, int(row["n_active"]))
+                                   for row in rows[:steps])
             stop = next((j for j, row in enumerate(rows[:steps])
                          if stops(cfg, row["integral"], row["error"], row["n_active"])), None)
             if stop is not None:
@@ -526,6 +569,8 @@ def integrate_device(
         overflowed=overflowed,
         host_syncs=syncs,
         discarded=discarded,
+        eval_rows=eval_rows,
+        eval_rows_exact=eval_rows_exact,
     )
 
 

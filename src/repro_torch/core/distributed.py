@@ -64,11 +64,6 @@ class DistributedResult(AdaptiveResult):
     )
     # regions moved by redistribution, summed over all rounds
     moved: int = 0
-    # rows the evaluate steps covered, summed over ranks and every iteration
-    # run in full (discarded ones too), and the rows they would have covered
-    # had every window been sized from the exact count (the K = 1 windows)
-    eval_rows: int = 0
-    eval_rows_exact: int = 0
 
     def mean_imbalance(self) -> float:
         if not self.history:
@@ -91,15 +86,17 @@ def _initial_global_partition(cfg: QuadratureConfig, n_devices: int):
 
 
 def _initial_states(
-    cfg: QuadratureConfig, ranks: Ranks, dtype: torch.dtype
+    cfg: QuadratureConfig, ranks: Ranks, dtype: torch.dtype, recorder=NULL
 ) -> tuple[list[RegionState], list[int]]:
     """Per-rank initial states (box r on rank r mod n) and their counts.
 
     Each store is allocated on its rank's device; only the initial boxes
-    are copied from the host, through pinned memory (no host wait).
+    are copied from the host, through pinned memory (no host wait).  The
+    global partition is built inside a ``core.partition`` span.
     """
     n_devices = ranks.n
-    centers, halfw, n_init = _initial_global_partition(cfg, n_devices)
+    with recorder.span("core.partition"):
+        centers, halfw, n_init = _initial_global_partition(cfg, n_devices)
     C, d = cfg.capacity, cfg.d
     per_dev = -(-n_init // n_devices)
     if per_dev > C // 2:
@@ -146,70 +143,76 @@ _PER_RANK = ("n_rows", "work", "sent", "overflowed", "after", "n_evals")
 
 
 def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_volume, widths,
-             stopped):
+             stopped, record, recorder=NULL):
     """One iteration on every rank, enqueued with no host read.
 
     ``counts`` are the per-rank live counts (int64 on each rank's device)
     and ``bounds`` host upper bounds of them, from which the windows are
     sized.  Returns the states, the counts after the round and the
     iteration's snapshot (float64, on the first rank's device): integral
-    and error, then :data:`_PER_RANK` rank by rank.  ``stopped()`` is asked
-    before every rank's evaluate but the first, before the advance and
-    before the round; once it holds, the iteration is abandoned and
-    ``None`` returned, with nothing more enqueued.
+    and error, then :data:`_PER_RANK` rank by rank; ``record(snapshot)``
+    queues its copy to the host.  ``stopped()`` is asked before every
+    rank's evaluate but the first, before the advance and before the round;
+    once it holds, the iteration is abandoned and ``None`` returned, with
+    nothing more enqueued.  ``recorder`` gets the stage spans
+    (:func:`integrate_distributed`).
     """
     C = cfg.capacity
     ladder, adv_ladder = eval_ladder(cfg), advance_ladder(cfg)
 
     # --- evaluate (window from the rank's bound) ---------------------------
     works, ests, errs = [], [], []
-    for r, st in enumerate(states):
-        if r and stopped():
-            return None
-        w = region_store.select_window(ladder, bounds[r])
-        works.append(torch.sum(st.active[:w] & st.fresh[:w]))
-        st = states[r] = make_eval_step(cfg, rule, window=w)(st)
-        i_loc, e_loc = st.global_estimates(
-            window=region_store.select_window(adv_ladder, bounds[r])
-        )
-        ests.append(i_loc)
-        errs.append(e_loc)
+    with recorder.span("dist.eval"):
+        for r, st in enumerate(states):
+            if r and stopped():
+                return None
+            w = region_store.select_window(ladder, bounds[r])
+            works.append(torch.sum(st.active[:w] & st.fresh[:w]))
+            st = states[r] = make_eval_step(cfg, rule, window=w)(st)
+            i_loc, e_loc = st.global_estimates(
+                window=region_store.select_window(adv_ladder, bounds[r])
+            )
+            ests.append(i_loc)
+            errs.append(e_loc)
 
     # --- metadata exchange --------------------------------------------------
-    integral_t = ranks.psum(ests)
-    error_t = ranks.psum(errs)
-    n_global_t = ranks.psum(counts)
+    with recorder.span("dist.exchange"):
+        integral_t = ranks.psum(ests)
+        error_t = ranks.psum(errs)
+        n_global_t = ranks.psum(counts)
 
     # --- classify (global equal-share threshold) and split ------------------
     if stopped():
         return None
     post = []
-    for r, st in enumerate(states):
-        w = region_store.select_window(adv_ladder, advance_target(bounds[r], C))
-        ww = None if w == C else w
-        sl = slice(0, w)
-        fin = classify(
-            cfg,
-            st.est[sl],
-            st.err[sl],
-            st.halfw[sl],
-            st.active[sl],
-            integral_t.to(st.est.device, non_blocking=True),
-            total_volume,
-            widths[r],
-            n_active=n_global_t.to(st.est.device, non_blocking=True),
-        )
-        st = states[r] = classify_split_compact(st, fin, window=ww)
-        post.append(torch.sum(st.active[:w]))
+    with recorder.span("dist.advance"):
+        for r, st in enumerate(states):
+            w = region_store.select_window(adv_ladder, advance_target(bounds[r], C))
+            ww = None if w == C else w
+            sl = slice(0, w)
+            fin = classify(
+                cfg,
+                st.est[sl],
+                st.err[sl],
+                st.halfw[sl],
+                st.active[sl],
+                integral_t.to(st.est.device, non_blocking=True),
+                total_volume,
+                widths[r],
+                n_active=n_global_t.to(st.est.device, non_blocking=True),
+            )
+            st = states[r] = classify_split_compact(st, fin, window=ww)
+            post.append(torch.sum(st.active[:w]))
 
     # --- the decentralised redistribution ------------------------------------
     if stopped():
         return None
     if cfg.redistribution != "off":
-        states, after, sent = redistribute(
-            states, ranks, schedule=schedule, cap=cfg.message_cap,
-            limit=_round_limit(C), it=it, n_rows=post,
-        )
+        with recorder.span("dist.round"):
+            states, after, sent = redistribute(
+                states, ranks, schedule=schedule, cap=cfg.message_cap,
+                limit=_round_limit(C), it=it, n_rows=post,
+            )
     else:
         after, sent = post, [torch.zeros_like(p) for p in post]
     for st in states:
@@ -217,11 +220,13 @@ def _iterate(cfg, rule, ranks, states, counts, bounds, it, *, schedule, total_vo
 
     # one float64 row a rank (stack promotes the counts and the flag; every
     # count is exact below 2^53)
-    per_rank = ranks.gather([
-        torch.stack([n, w, k, st.overflowed, a, st.n_evals.double()])
-        for n, w, k, st, a in zip(counts, works, sent, states, after)
-    ])
-    snap = torch.cat([torch.stack([integral_t, error_t]).double(), per_rank.flatten()])
+    with recorder.span("dist.snapshot"):
+        per_rank = ranks.gather([
+            torch.stack([n, w, k, st.overflowed, a, st.n_evals.double()])
+            for n, w, k, st, a in zip(counts, works, sent, states, after)
+        ])
+        snap = torch.cat([torch.stack([integral_t, error_t]).double(), per_rank.flatten()])
+        record(snap)
     return states, after, snap
 
 
@@ -282,23 +287,30 @@ def integrate_distributed(
     ``dist.dispatch`` span per dispatch (``executed`` = the iterations the
     host kept), and per kept iteration a ``dist.work_imb`` gauge, the very
     float of the ``history`` row, and a ``dist.iter`` instant, all from the
-    values of the dispatch's one read.
+    values of the dispatch's one read.  It also gets the port's stage
+    spans, each around one stage of every rank: a ``dist.init`` span around
+    the set-up (holding ``core.partition``); per iteration ``dist.eval``
+    (each rank's evaluate and local estimates), ``dist.exchange`` (the three
+    psums), ``dist.advance`` (each rank's classify, compact and split),
+    ``dist.round`` (the round) and ``dist.snapshot`` (the gather and the
+    snapshot's copy); per dispatch a ``dist.read``.
     """
     cfg = cfg.validate()
     if devices is None:
         devices = cuda_devices(torch.cuda.device_count())
-    ranks = Ranks(devices)
-    n = ranks.n
+    with recorder.span("dist.init"):
+        ranks = Ranks(devices)
+        n = ranks.n
 
-    lo = np.asarray(cfg.lo(), np.float64)
-    hi = np.asarray(cfg.hi(), np.float64)
-    total_volume = float(np.prod(hi - lo))
-    rule = make_rule(cfg, integrand)
-    schedule = make_schedule(n)
-    dt = getattr(torch, cfg.dtype)
-    states, n_host = _initial_states(cfg, ranks, dt)
-    widths = [to_device(hi - lo, torch.float64, dev) for dev in ranks.devices]
-    counts = [to_device(k, torch.int64, dev) for k, dev in zip(n_host, ranks.devices)]
+        lo = np.asarray(cfg.lo(), np.float64)
+        hi = np.asarray(cfg.hi(), np.float64)
+        total_volume = float(np.prod(hi - lo))
+        rule = make_rule(cfg, integrand)
+        schedule = make_schedule(n)
+        dt = getattr(torch, cfg.dtype)
+        states, n_host = _initial_states(cfg, ranks, dt, recorder)
+        widths = [to_device(hi - lo, torch.float64, dev) for dev in ranks.devices]
+        counts = [to_device(k, torch.int64, dev) for k, dev in zip(n_host, ranks.devices)]
     ladder = eval_ladder(cfg)
 
     def unpack(vals):  # a snapshot row as a dict, the per-rank fields as arrays
@@ -333,6 +345,7 @@ def integrate_distributed(
                 done = _iterate(
                     cfg, rule, ranks, states, counts, bounds, it + j, schedule=schedule,
                     total_volume=total_volume, widths=widths, stopped=landed.stopped,
+                    record=landed.record, recorder=recorder,
                 )
                 if done is None:  # abandoned at the landed stop
                     discarded += 1
@@ -340,8 +353,8 @@ def integrate_distributed(
                 states, counts, snap = done
                 windows.append([region_store.select_window(ladder, b) for b in bounds])
                 snaps.append(snap)
-                landed.record(snap)
-            rows = torch.stack(snaps).tolist()
+            with recorder.span("dist.read"):
+                rows = torch.stack(snaps).tolist()
             syncs += 1
             kept = []
             for vals, wins in zip(rows, windows):

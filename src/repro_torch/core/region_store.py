@@ -22,6 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.telemetry.core import NULL
+
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Pairwise sum over the last axis; ``(..., n) -> (...)``.
@@ -150,10 +152,13 @@ def init_state(
     n_init: int,
     dtype: torch.dtype,
     device,
+    recorder=NULL,
 ) -> RegionState:
-    """Fresh state holding the initial uniform partition."""
+    """Fresh state holding the initial uniform partition (built inside a
+    ``core.partition`` span on ``recorder``)."""
     lo = np.asarray(lo, np.float64)
-    centers, halfw = uniform_partition(lo, hi, n_init)
+    with recorder.span("core.partition", n_boxes=n_init):
+        centers, halfw = uniform_partition(lo, hi, n_init)
     st = empty_state(capacity, lo.shape[0], dtype, device)
     st.centers[:n_init] = torch.as_tensor(centers, dtype=dtype, device=device)
     st.halfw[:n_init] = torch.as_tensor(halfw, dtype=dtype, device=device)

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.region_store import RegionState, masked_sums
+from repro_torch.telemetry.core import NULL
 
 
 def survivor_sort_perm(err: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -68,22 +69,10 @@ ROWS = ("centers", "halfw", "est", "err", "axis", "active", "fresh")
 SCALARS = ("fin_integral", "fin_error", "overflowed")
 
 
-def split_compact_rows(
-    capacity: int, rows: dict, scalars: dict, finalize_mask: torch.Tensor
-) -> tuple[dict, dict]:
-    """The advance over a leading problem axis: ``(S, w, ...)`` rows.
-
-    ``rows`` holds the fields of :data:`ROWS` over the leading ``w`` rows of
-    S stores (``centers`` and ``halfw`` ``(S, w, d)``, the rest ``(S, w)``),
-    ``scalars`` the fields of :data:`SCALARS` as ``(S,)``, and
-    ``finalize_mask`` is ``(S, w)``.  Every problem is advanced on its own,
-    by batched torch operations over the problem axis: the per-problem counts
-    are ``(S,)`` tensors compared against ``idx[None, :]``, the gathers run
-    along dim 1.  Returns new ``(rows, scalars)``.  A single store is the
-    ``S = 1`` case (:func:`classify_split_compact`).
-    """
-    C = capacity
-    w = rows["active"].shape[1]
+def _compact_rows(rows: dict, scalars: dict, finalize_mask: torch.Tensor) -> tuple[dict, dict]:
+    """Fold the finalised rows into the accumulators and sort the survivors
+    to the front by descending error: the six gathers of :data:`ROWS` but
+    ``fresh``, which the split rewrites."""
     act_w = rows["active"]
     fin = finalize_mask & act_w
     fin_sums = masked_sums(fin, rows["est"], rows["err"])
@@ -97,13 +86,19 @@ def split_compact_rows(
         index = perm if x.ndim == 2 else perm[..., None]
         return torch.take_along_dim(x, index, dim=1)
 
-    centers = take(rows["centers"])
-    halfw = take(rows["halfw"])
-    est = take(rows["est"])
-    err = take(rows["err"])
-    axis = take(rows["axis"])
-    active = take(active)
+    rows = {name: take(rows[name]) for name in ("centers", "halfw", "est", "err", "axis")}
+    rows["active"] = take(active)
+    return rows, dict(fin_integral=fin_integral, fin_error=fin_error,
+                      overflowed=scalars["overflowed"])
 
+
+def _split_rows(capacity: int, rows: dict, scalars: dict) -> tuple[dict, dict]:
+    """Force-finalise past ``3C//4`` and split the leading survivors of
+    compacted rows: child A in the parent's row, child B after the block."""
+    C = capacity
+    centers, halfw, est, err, axis, active = (
+        rows[name] for name in ("centers", "halfw", "est", "err", "axis", "active"))
+    w = active.shape[1]
     n_act = torch.sum(active, dim=1)
     idx = torch.arange(w, device=active.device)[None, :]
 
@@ -114,8 +109,8 @@ def split_compact_rows(
     limit = 3 * C // 4
     forced = active & (idx >= limit)
     forced_sums = masked_sums(forced, est, err)
-    fin_integral = fin_integral + forced_sums[0]
-    fin_error = fin_error + forced_sums[1]
+    fin_integral = scalars["fin_integral"] + forced_sums[0]
+    fin_error = scalars["fin_error"] + forced_sums[1]
     active = active & ~forced
     n_act = torch.clamp(n_act, max=limit)
 
@@ -166,10 +161,37 @@ def split_compact_rows(
     return rows, scalars
 
 
+def stage_spans(recorder) -> dict:
+    """The keyword arguments that give :func:`classify_split_compact` its
+    stage spans on ``recorder``: none when telemetry is off, so that the
+    call is then the three-argument one that stand-ins for the advance
+    (planted faults, test spies) take."""
+    return {"recorder": recorder} if recorder.enabled else {}
+
+
+def split_compact_rows(
+    capacity: int, rows: dict, scalars: dict, finalize_mask: torch.Tensor
+) -> tuple[dict, dict]:
+    """The advance over a leading problem axis: ``(S, w, ...)`` rows.
+
+    ``rows`` holds the fields of :data:`ROWS` over the leading ``w`` rows of
+    S stores (``centers`` and ``halfw`` ``(S, w, d)``, the rest ``(S, w)``),
+    ``scalars`` the fields of :data:`SCALARS` as ``(S,)``, and
+    ``finalize_mask`` is ``(S, w)``.  Every problem is advanced on its own,
+    by batched torch operations over the problem axis: the per-problem counts
+    are ``(S,)`` tensors compared against ``idx[None, :]``, the gathers run
+    along dim 1.  Returns new ``(rows, scalars)``.  A single store is the
+    ``S = 1`` case (:func:`classify_split_compact`).
+    """
+    rows, scalars = _compact_rows(rows, scalars, finalize_mask)
+    return _split_rows(capacity, rows, scalars)
+
+
 def classify_split_compact(
     state: RegionState,
     finalize_mask: torch.Tensor,
     window: Optional[int] = None,
+    recorder=NULL,
 ) -> RegionState:
     """Apply the classifier verdict, then split every surviving region.
 
@@ -177,16 +199,22 @@ def classify_split_compact(
     split; the rest stay active-but-unsplit.  ``overflowed`` records that
     pressure was ever hit.  ``finalize_mask`` has shape ``(window,)``
     (``(capacity,)`` when ``window`` is ``None``).  The single-store case of
-    :func:`split_compact_rows`.
+    :func:`split_compact_rows`.  ``recorder`` gets a ``core.compact`` span
+    (the fold of the finalised rows, the survivor sort and the gathers) and
+    a ``core.split`` span (the forced finalise, the children and the
+    write-back into the store).
     """
     w = _window(state, window)
     rows = {name: getattr(state, name)[:w][None] for name in ROWS}
     scalars = {name: getattr(state, name)[None] for name in SCALARS}
-    rows, scalars = split_compact_rows(state.capacity, rows, scalars, finalize_mask[None])
-    # In place on the leading window; the tail is all-inactive and
-    # fresh-free by the window contract.
-    for name in ROWS:
-        getattr(state, name)[:w] = rows[name][0]
+    with recorder.span("core.compact"):
+        rows, scalars = _compact_rows(rows, scalars, finalize_mask[None])
+    with recorder.span("core.split"):
+        rows, scalars = _split_rows(state.capacity, rows, scalars)
+        # In place on the leading window; the tail is all-inactive and
+        # fresh-free by the window contract.
+        for name in ROWS:
+            getattr(state, name)[:w] = rows[name][0]
     return dataclasses.replace(state, **{name: scalars[name][0] for name in SCALARS})
 
 

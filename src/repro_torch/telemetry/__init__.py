@@ -1,10 +1,14 @@
 """Observability of the port: host-side telemetry for every driver.
 
-The port's own copy of the JAX package's ``repro.telemetry`` (same event
-names, envelope and aggregates; the port imports nothing of that package).
-Everything is recorded on the host at the drivers' own decision points and
-nothing reads a device, so the recorder on or off gives the same bits and
-the same host syncs.
+The port's own copy of the JAX package's ``repro.telemetry`` (same
+envelope and aggregates; the port imports nothing of that package).  The
+event names are the JAX package's, plus the stage spans of the port's
+drivers nested inside them (``core.init``, ``core.rule``, ``core.split``,
+``dist.exchange``, ...: :mod:`~repro_torch.telemetry.core`).  Everything is
+recorded on the host at the drivers' own decision points and nothing reads
+a device, so the recorder on or off gives the same bits and the same host
+syncs.  A recorder built with ``ranges=torch.profiler.record_function``
+also opens each span as a profiler range, on the device trace's clock.
 
 - :mod:`~repro_torch.telemetry.core`: :class:`Recorder` (counters, gauges,
   histograms, nestable spans, flows) and the no-op :data:`NULL`;

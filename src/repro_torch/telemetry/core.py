@@ -37,13 +37,24 @@ Event schema (one dict per event; sinks serialize it verbatim)::
 
 The clock is injectable (``Recorder(clock=fake)``) so tests assert exact
 span durations and orderings deterministically.
+
+The port's streams carry the JAX package's names plus the stage spans of
+its drivers (``core.init``, ``core.partition``, ``core.rule``,
+``core.classify``, ``core.compact``, ``core.split``, ``core.read``,
+``core.snapshot``; ``dist.init``, ``dist.eval``, ``dist.exchange``,
+``dist.advance``, ``dist.round``, ``dist.snapshot``, ``dist.read``), which
+nest inside the JAX package's own spans.  With
+``Recorder(ranges=torch.profiler.record_function)`` every span also opens a
+profiler range of its name for its duration, so the spans sit in the
+profiler's trace, on its clock, around the device work they launch.  This
+module stays free of torch: the caller supplies the callable.
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, ContextManager, Dict, Iterator, List, Optional, Tuple
 
 
 #: Per-histogram raw-sample retention cap.  ``observe`` keeps the first N
@@ -87,6 +98,10 @@ class Recorder:
     clock:
         Zero-arg callable returning seconds.  Defaults to
         :func:`time.monotonic`; inject a fake for deterministic tests.
+    ranges:
+        Optional callable taking a span's name and returning a context
+        manager, entered for the span's body (a profiler range, e.g.
+        ``torch.profiler.record_function``).  ``None`` opens none.
     """
 
     enabled = True
@@ -95,9 +110,11 @@ class Recorder:
         self,
         sinks: Tuple[Any, ...] = (),
         clock: Callable[[], float] = time.monotonic,
+        ranges: Optional[Callable[[str], ContextManager[Any]]] = None,
     ) -> None:
         self.sinks: List[Any] = list(sinks)
         self.clock = clock
+        self.ranges = ranges
         self._seq = 0
         self._flow_id = 0
         self._span_depth = 0
@@ -244,7 +261,8 @@ class Recorder:
 
         Yields a mutable attrs dict — entries added inside the body ride on
         the ``span_end`` event (e.g. ``sp["executed"] = k`` after a fused
-        dispatch returns how many iterations actually ran).
+        dispatch returns how many iterations actually ran).  With
+        ``ranges`` set, the body runs inside ``ranges(name)``.
         """
         t0 = self.clock()
         depth = self._span_depth
@@ -261,7 +279,11 @@ class Recorder:
         )
         merged: Dict[str, Any] = dict(attrs)
         try:
-            yield merged
+            if self.ranges is None:
+                yield merged
+            else:
+                with self.ranges(name):
+                    yield merged
         finally:
             t1 = self.clock()
             self._span_depth = depth

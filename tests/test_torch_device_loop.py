@@ -10,6 +10,7 @@ import torch
 from repro.core import adaptive as jad
 from repro.core.config import QuadratureConfig as JConfig
 from repro_torch.core import adaptive as tad
+from repro_torch.core import region_store
 from repro_torch.core.config import QuadratureConfig as TConfig
 
 torch.set_num_threads(1)
@@ -109,6 +110,47 @@ def test_abandoned_steps_are_never_read(monkeypatch, late, discarded):
         host.status, host.integral, host.error, host.iterations, host.n_evals)
     assert got.discarded == discarded
     assert len(log) == 2 * s + late
+
+
+@pytest.mark.parametrize("max_iters", [400, 14])
+@pytest.mark.parametrize("landed", ["at once", "never"])
+@pytest.mark.parametrize("sync_every", [1, 4])
+def test_eval_rows_against_a_recount(sync_every, landed, max_iters, monkeypatch):
+    """``eval_rows`` sums the windows of every evaluate step enqueued,
+    ``eval_rows_exact`` the windows of each step's exact population; they
+    are equal when every window comes from an exact count.  At 14 the run
+    ends at ``max_iters``, with one snapshot more than evaluate steps."""
+    cfg = TConfig(d=3, integrand="f4", rel_tol=1e-7, capacity=1 << 15, max_iters=max_iters,
+                  sync_every=sync_every)
+    host = tad.integrate(cfg, device="cpu")
+    if landed == "never":
+        monkeypatch.setattr(tad, "_landed", lambda event: False)
+    ladder = tad.eval_ladder(cfg)
+    windows, exact = [], []
+    make_eval_step = tad.make_eval_step
+
+    def spy(cfg, rule, window=None):
+        step = make_eval_step(cfg, rule, window=window)
+
+        def run(st):
+            windows.append(window)
+            exact.append(region_store.select_window(ladder, int(st.active.sum())))
+            return step(st)
+        return run
+
+    monkeypatch.setattr(tad, "make_eval_step", spy)
+    got = tad.integrate_device(cfg, device="cpu")
+    if max_iters == 14:
+        assert got.status == "max_iters" and len(windows) == 14
+    else:
+        assert len(windows) == got.iterations + 1 + got.discarded
+    assert (got.eval_rows, got.eval_rows_exact) == (sum(windows), sum(exact))
+    if sync_every == 1 or landed == "at once":
+        assert got.eval_rows == got.eval_rows_exact
+    else:
+        assert got.eval_rows > got.eval_rows_exact
+    # the host loop sizes every window from the exact count
+    assert host.eval_rows == host.eval_rows_exact == sum(exact[:host.iterations + 1])
 
 
 def test_matches_reference_device_loop():

@@ -7,9 +7,11 @@ one fake clock and the same calls, and everything derived from the two
 streams must be equal dict for dict: the events, the summary tables, the
 Chrome traces, the load views and the checker's findings.  A port trace
 written by a real CPU run must pass the JAX checker, and the port's sinks
-refuse a ``torch.Tensor``.
+refuse a ``torch.Tensor``.  The port's ``Recorder`` alone takes a ``ranges``
+hook, opened around each span's body.
 """
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -432,7 +434,82 @@ def test_port_trace_of_a_cpu_run_passes_the_jax_checker(tmp_path):
     path = str(tmp_path / "trace.json")
     write_chrome_trace(path, sink.events)
     assert jcheck_trace(path) == []
-    assert {e["name"] for e in sink.events} == {"core.eval", "core.iter", "core.advance"}
+    assert {e["name"] for e in sink.events} == {
+        "core.eval", "core.iter", "core.advance",  # the JAX package's
+        "core.init", "core.partition", "core.rule", "core.classify", "core.read",
+        "core.compact", "core.split"}
+
+
+# --- the port's ranges hook ---------------------------------------------------
+
+
+def test_ranges_open_and_close_in_nesting_order_also_when_the_body_raises():
+    from repro_torch.telemetry import NULL, MemorySink, Recorder
+
+    log = []
+
+    @contextlib.contextmanager
+    def ranges(name):
+        log.append(("open", name))
+        try:
+            yield
+        except ValueError:
+            log.append(("raised", name))
+            raise
+        finally:
+            log.append(("close", name))
+
+    clock = FakeClock()
+    sink = MemorySink()
+    rec = Recorder(sinks=(sink,), clock=clock, ranges=ranges)
+    with rec.span("outer"):
+        with rec.span("inner", lane=1) as sp:
+            clock.advance(0.5)
+            sp["k"] = 3
+        with pytest.raises(ValueError):
+            with rec.span("fails"):
+                raise ValueError("body")
+    assert log == [("open", "outer"), ("open", "inner"), ("close", "inner"),
+                   ("open", "fails"), ("raised", "fails"), ("close", "fails"),
+                   ("close", "outer")]
+    # the events are those of a recorder without the hook
+    plain = MemorySink()
+    bare = Recorder(sinks=(plain,), clock=FakeClock())
+    with bare.span("outer"):
+        with bare.span("inner", lane=1) as sp:
+            bare.clock.advance(0.5)
+            sp["k"] = 3
+        with pytest.raises(ValueError):
+            with bare.span("fails"):
+                raise ValueError("body")
+    assert sink.events == plain.events
+    assert rec.span_totals == bare.span_totals
+    # the NULL recorder has no hook and opens nothing
+    with NULL.span("outer"):
+        pass
+    assert len(log) == 7 and not hasattr(NULL, "ranges")
+
+
+def test_record_function_ranges_reach_the_profiler():
+    from repro_torch.core.adaptive import integrate
+    from repro_torch.core.config import QuadratureConfig
+    from repro_torch.telemetry import MemorySink, Recorder
+
+    sink = MemorySink()
+    rec = Recorder(sinks=(sink,), ranges=torch.profiler.record_function)
+    cfg = QuadratureConfig(d=2, integrand="f4", rel_tol=1e-6, capacity=1 << 10)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res = integrate(cfg, device="cpu", recorder=rec)
+    assert res.status == "converged"
+    spans = {}
+    for e in sink.events:
+        if e["kind"] == "span_end":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    seen = {}
+    for e in prof.events():
+        if e.name in spans:
+            seen[e.name] = seen.get(e.name, 0) + 1
+    assert seen == spans
 
 
 def test_port_sinks_refuse_a_tensor(tmp_path):

@@ -2,14 +2,16 @@
 
 The recorder changes no result bit and adds no read: each driver's result
 (status, iterations, evaluations, integral and error to the bit) and its
-``host_syncs`` are the same with a recorder and without one.  The recorded
-streams carry the JAX package's names, the distributed driver's
-``dist.work_imb`` gauges average to ``mean_imbalance()``, and the service's
-counters and event multiset equal the JAX service's on the config of
-``tests/test_telemetry.py``.
+``host_syncs`` are the same with a recorder and without one, also with
+every span opened as a range.  The recorded streams carry the JAX package's
+names plus the port's stage spans, each driver's exact multiset of them,
+the distributed driver's ``dist.work_imb`` gauges average to
+``mean_imbalance()``, and the service's counters and event multiset equal
+the JAX service's on the config of ``tests/test_telemetry.py``.
 """
 
 import collections
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -34,12 +36,38 @@ torch.set_num_threads(1)
 FAMILY = get_param("genz_gaussian")
 
 
-def _recorded(tmp_path=None):
+def _recorded(tmp_path=None, ranges=None):
     """A recorder with a memory sink (and a JSONL sink when a directory is
     given: every attribute must then encode as a host number)."""
     sink = MemorySink()
     sinks = (sink,) if tmp_path is None else (sink, JsonlSink(str(tmp_path / "m.jsonl")))
-    return Recorder(sinks=sinks), sink
+    return Recorder(sinks=sinks, ranges=ranges), sink
+
+
+class Ranges:
+    """A ``ranges`` hook that logs each range it opens and closes, and
+    checks that they close in nesting order."""
+
+    def __init__(self):
+        self.log, self.open = [], []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        self.log.append(name)
+        self.open.append(name)
+        try:
+            yield
+        finally:
+            assert self.open.pop() == name
+
+    def names(self):
+        assert not self.open
+        return collections.Counter(self.log)
+
+
+def _spans(events):
+    """The span names of a stream, each counted once a span."""
+    return collections.Counter(e["name"] for e in events if e["kind"] == "span_end")
 
 
 def _bits(res):
@@ -59,14 +87,23 @@ def test_integrate_on_off_bit_parity(rule, tmp_path):
     cfg = QuadratureConfig(d=3 if rule == "genz_malik" else 2, integrand="f4", rel_tol=1e-6,
                            capacity=1 << 11, rule=rule)
     off = integrate(cfg, device="cpu")
-    rec, sink = _recorded(tmp_path)
+    ranges = Ranges()
+    rec, sink = _recorded(tmp_path, ranges)
     on = integrate(cfg, device="cpu", recorder=rec)
     rec.close()
     assert _bits(on) == _bits(off)
+    assert (on.eval_rows, on.eval_rows_exact) == (off.eval_rows, off.eval_rows_exact)
     names = _names(sink.events)
     evals = names[("span_end", "core.eval")]
     assert evals == names[("instant", "core.iter")] == off.host_syncs - 1
     assert names[("span_end", "core.advance")] == off.iterations
+    # one evaluate step a core.eval; a compact and a split an advance; a
+    # core.read a host read
+    assert _spans(sink.events) == {
+        "core.init": 1, "core.partition": 1, "core.eval": evals, "core.rule": evals,
+        "core.classify": evals, "core.read": off.host_syncs, "core.advance": off.iterations,
+        "core.compact": off.iterations, "core.split": off.iterations}
+    assert ranges.names() == _spans(sink.events)
     assert check_metrics(str(tmp_path / "m.jsonl")) == []
 
 
@@ -84,7 +121,14 @@ def test_integrate_events_match_the_jax_driver():
     rec, sink = _recorded()
     res = integrate(QuadratureConfig(**fields), device="cpu", recorder=rec)
     assert (res.status, res.iterations) == (jres.status, jres.iterations)
-    assert _names(sink.events) == _names(jsink.events)
+    # the names both packages emit, each as often; the port's others are
+    # exactly its stage spans
+    ours, theirs = _names(sink.events), _names(jsink.events)
+    assert {k: ours[k] for k in theirs} == theirs
+    assert {k for k in ours if k not in theirs} == {
+        (kind, name) for kind in ("span_begin", "span_end")
+        for name in ("core.init", "core.partition", "core.rule", "core.classify", "core.read",
+                     "core.compact", "core.split")}
     it_t = [(e["it"], e["n_active"]) for e in sink.events if e["name"] == "core.iter"]
     it_j = [(e["it"], e["n_active"]) for e in jsink.events if e["name"] == "core.iter"]
     assert it_t == it_j
@@ -93,21 +137,44 @@ def test_integrate_events_match_the_jax_driver():
 def test_integrate_device_on_off_bit_parity():
     cfg = QuadratureConfig(d=3, integrand="f4", rel_tol=1e-6, capacity=1 << 11, sync_every=3)
     off = integrate_device(cfg, device="cpu")
-    rec, sink = _recorded()
+    ranges = Ranges()
+    rec, sink = _recorded(ranges=ranges)
     on = integrate_device(cfg, device="cpu", recorder=rec)
     assert _bits(on) == _bits(off)
-    assert _names(sink.events) == {("span_begin", "core.device_loop"): 1,
-                                   ("span_end", "core.device_loop"): 1}
+    assert (on.discarded, on.eval_rows, on.eval_rows_exact) == (
+        off.discarded, off.eval_rows, off.eval_rows_exact)
+    # every snapshot lands at once on the CPU: the loop stops after the
+    # evaluate step that converged, and discards none
+    steps, advances = off.iterations + 1, off.iterations
+    assert off.discarded == 0
+    assert _names(sink.events) == {
+        (kind, name): n for kind in ("span_begin", "span_end") for name, n in (
+            ("core.device_loop", 1), ("core.init", 1), ("core.partition", 1),
+            ("core.rule", steps), ("core.classify", steps), ("core.snapshot", steps + advances),
+            ("core.compact", advances), ("core.split", advances), ("core.read", off.host_syncs))}
+    assert ranges.names() == _spans(sink.events)
 
 
 def test_integrate_distributed_three_ranks_on_off_bit_parity(tmp_path):
     cfg = QuadratureConfig(d=3, integrand="f6", rel_tol=1e-4, capacity=1 << 11)
     off = integrate_distributed(cfg, devices=["cpu"] * 3)
-    rec, sink = _recorded(tmp_path)
+    ranges = Ranges()
+    rec, sink = _recorded(tmp_path, ranges)
     on = integrate_distributed(cfg, devices=["cpu"] * 3, recorder=rec)
     rec.close()
     assert _bits(on) == _bits(off)
     assert on.history == off.history and on.moved == off.moved
+    assert (on.discarded, on.eval_rows, on.eval_rows_exact) == (
+        off.discarded, off.eval_rows, off.eval_rows_exact)
+    # every iteration runs whole (snapshots land at once on the CPU); each
+    # stage span covers every rank
+    its, syncs = off.iterations, off.host_syncs
+    assert off.discarded == 0
+    assert _spans(sink.events) == {
+        "dist.init": 1, "core.partition": 1, "dist.dispatch": syncs, "dist.read": syncs,
+        "dist.eval": its, "dist.exchange": its, "dist.advance": its, "dist.round": its,
+        "dist.snapshot": its}
+    assert ranges.names() == _spans(sink.events)
     names = _names(sink.events)
     assert names[("gauge", "dist.work_imb")] == names[("instant", "dist.iter")] == off.iterations
     # one span per dispatch, each holding at most sync_every iterations
